@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GP regression serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's GP regression serving and training paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,22 @@ one JSON line:
 5. matrix-free: ``gp.posterior_cg`` at n = 102400 (Nyström rank 2048,
    tol 1e-3) with m = 8 (the symmetric sweep) and m = 64 (the full sweep),
    checked for convergence and for launches of each kernel, then the same
-   pipeline at n = 4096 against the exact path (max abs error < 1e-2).
+   pipeline at n = 4096 against the exact path (max abs error < 1e-2);
+6. kernels_bwd: the CUDA backward sweep (K4) against its plain version in
+   float64 (dL/dcoef within 1e-3 relative per coefficient, dL/dx within
+   2e-4 x max |plain|) for RBF, Matern 5/2 and co2 without White at
+   n in {4096, 3001}, r in {1, 8, 9}, same-set and cross-set; the params
+   gradient through the CUDA ``gram_matvec`` against autograd through the
+   plain version; then K4 at n = 102400 at the widths a training step hands
+   it (r = 1, r = 8), timed against the plain VJP;
+7. train_exact: ``GPRegressor(...).fit(x, y, optimize=True, max_iters=50)``
+   (Adam, log transform) at n = 8192 in fp32, gated against the same run in
+   float64 (rel LML 3e-4, rel params 1e-3);
+8. train_large: ``opt.tune_large_scale`` at n = 102400 (8 probes, Nyström
+   rank 2048, cg_tol 1e-4, 3 steps), which must launch K3 and exactly two
+   K4 per step; then at n = 4096 the surrogate's gradient (64 probes)
+   within 0.1 of the exact float64 LML gradient, and 10 steps raising the
+   exact LML by more than 1.0.
 
 Then a line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -34,8 +50,9 @@ import time
 import numpy as np
 import torch
 
-from gaussian_process_tpu_torch import convert, gp, ops
+from gaussian_process_tpu_torch import convert, gp, ops, opt
 from gaussian_process_tpu_torch.models import GPRegressor
+from gaussian_process_tpu_torch.ops import kernels as tk
 from gaussian_process_tpu_torch.ops.cuda import _build
 from gaussian_process_tpu_torch.ops.cuda import kernel_ops as kops
 
@@ -49,11 +66,22 @@ N_BIG, N_PARITY, D = 102400, 4096, 4  # the matrix-free path's sizes
 CG_RUNS = ((8, "gram_matvec_sym"), (64, "gram_matvec_full"))
 MAIN_R = {name: m + 1 for m, name in CG_RUNS}
 EXTRA_R = {"gram_matvec_sym": 16, "gram_matvec_full": 72}  # padded widths, checked too
-KERNEL_SOURCE = "gaussian_process_tpu_torch/csrc/gram_matvec.cu"
+SOURCES = {
+    "gram_matvec_sym": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
+    "gram_matvec_full": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
+    "gram_matvec_bwd": "gaussian_process_tpu_torch/csrc/gram_matvec_bwd.cu",
+}
 REPLACES = {
     "gram_matvec_sym": "gaussian_process_tpu/ops/pallas/kernel_ops.py:391",
     "gram_matvec_full": "gaussian_process_tpu/ops/pallas/kernel_ops.py:303",
+    "gram_matvec_bwd": "gaussian_process_tpu/ops/pallas/kernel_ops.py:518",
 }
+# K4 vs its plain version in float64: dL/dcoef per coefficient (fp32 entry
+# products summed in float64), dL/dx as the forward's bound
+BWD_COEF_RTOL = 1e-3
+BWD_R = (1, 8)  # the widths a training step hands K4: the alpha VJP, the probe VJP
+GATE_PARAMS = 1e-3  # train_exact: rel params, fp32 vs float64
+TRAIN_STEPS, TRAIN_PROBES, TRAIN_RANK = 3, 8, 2048
 
 
 def emit(phase: str, **fields) -> None:
@@ -298,6 +326,231 @@ def phase_matrix_free(device, gen: np.random.Generator) -> dict:
     return totals
 
 
+def _centred(x1, x2):
+    c = torch.mean(x1, dim=0, keepdim=True)
+    x1c = (x1 - c).contiguous()
+    return x1c, (x1c if x2 is None else (x2 - c).contiguous())
+
+
+def _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx):
+    """K4 once against the float64 plain VJP on the same (fp32) inputs;
+    returns the errors."""
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=x1c.device)
+    need_l2 = tk.needs_l2(kernel)
+    before = kops.launch_counts["gram_matvec_bwd"]
+    d_coef, d_x = kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct, need_l2=need_l2,
+                                       want_dx=want_dx)
+    torch.cuda.synchronize()
+    require(kops.launch_counts["gram_matvec_bwd"] == before + 1, "gram_matvec_bwd launched")
+    want, want_dx_ = kops.gram_matvec_vjp_reference(
+        program, kops.coef_vector(coefs, dtype=torch.float64, device=x1c.device),
+        x1c.double(), x2c.double(), v.double(), ct.double(), need_l2=need_l2, want_dx=want_dx)
+    rel = torch.abs(d_coef.double() - want) / torch.abs(want)
+    coef_err = float(torch.max(rel))
+    require(np.isfinite(coef_err) and coef_err <= BWD_COEF_RTOL,
+            f"K4 dL/dcoef within {BWD_COEF_RTOL} (got {coef_err:.3e})")
+    out = {"coef_rel_err": coef_err,
+           "coef_abs_err": float(torch.max(torch.abs(d_coef.double() - want)))}
+    if want_dx:
+        err, scale = _max_err(d_x.double(), want_dx_)
+        out.update(dx_abs_err=err, dx_max_abs_plain=scale)
+    return out, (program, coef, need_l2)
+
+
+def _grad_fault_repro(device, gen, cases) -> list:
+    """The params gradient through the CUDA gram_matvec (the autograd
+    Function, whose backward launches K4) against autograd through the
+    plain version in float64: it must equal it, not be zero."""
+    rows = []
+    n = 3001
+    x = torch.tensor(gen.uniform(-5, 5, (n, D)), dtype=torch.float32, device=device)
+    v = torch.tensor(gen.standard_normal((n, 8)), dtype=torch.float32, device=device)
+    w = torch.tensor(gen.standard_normal((n, 8)), dtype=torch.float32, device=device)
+    for family in ("rbf", "co2_no_white"):
+        kernel, params = cases[family]
+        p32 = tk.tree_map_params(lambda a: a.detach().clone().requires_grad_(True), params)
+        p64 = tk.tree_map_params(lambda a: a.detach().double().requires_grad_(True), params)
+        before = kops.launch_counts["gram_matvec_bwd"]
+        loss = torch.sum(w * kops.gram_matvec(kernel, p32, x, None, v))
+        got = torch.autograd.grad(loss, tk.tree_leaves(p32))
+        torch.cuda.synchronize()
+        require(kops.launch_counts["gram_matvec_bwd"] == before + 1,
+                "the params gradient went through K4")
+        ref = torch.sum(w.double() * kops.gram_matvec_reference(
+            kernel, p64, x.double(), None, v.double(), same=True))
+        want = torch.autograd.grad(ref, tk.tree_leaves(p64))
+        errs = [float(abs(g.double() - r) / abs(r)) for g, r in zip(got, want)]
+        require(all(float(g) != 0.0 for g in got), f"{family}: nonzero params gradient")
+        require(max(errs) <= BWD_COEF_RTOL, f"{family}: params gradient within "
+                f"{BWD_COEF_RTOL} of the plain version's (got {max(errs):.3e})")
+        rows.append({"family": family, "max_rel_err": max(errs),
+                     "grad": [float(g) for g in got], "plain_grad": [float(r) for r in want]})
+    return rows
+
+
+def phase_kernels_bwd(device, gen: np.random.Generator) -> dict:
+    cases = _case_kernels(device)
+    checked = []
+    for n in (4096, 3001):
+        x = torch.tensor(gen.uniform(-5, 5, (n, D)), dtype=torch.float32, device=device)
+        x2 = torch.tensor(gen.uniform(-5, 5, (n // 2 + 7, D)), dtype=torch.float32,
+                          device=device)
+        for r in (1, 8, 9):
+            for same in (True, False):
+                x1c, x2c = _centred(x, None if same else x2)
+                m = x2c.shape[0]
+                v = torch.tensor(gen.standard_normal((m, r)), dtype=torch.float32,
+                                 device=device)
+                ct = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32,
+                                  device=device)
+                for family, (kernel, params) in cases.items():
+                    for want_dx in (False, True):
+                        errs, _ = _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx)
+                        checked.append({"family": family, "n": n, "m": m, "r": r,
+                                        "same": same, "dx": want_dx, **errs})
+    emit("kernels_bwd_vs_plain",
+         tolerance=f"dL/dcoef rel <= {BWD_COEF_RTOL} per coefficient (plain in float64); "
+                   f"dL/dx abs <= {KERNEL_RTOL} x max|plain|",
+         worst_coef_rel_err=max(c["coef_rel_err"] for c in checked),
+         cases=len(checked), rows=checked)
+    emit("grad_fault_repro", rows=_grad_fault_repro(device, gen, cases))
+
+    # at the training step's shapes: n = 102400, RBF(1, 2), no x-gradient
+    kernel, params = cases["rbf"]
+    x = torch.tensor(gen.uniform(-5, 5, (N_BIG, D)), dtype=torch.float32, device=device)
+    x1c, _ = _centred(x, None)
+    timed = {}
+    for r in BWD_R:
+        v = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
+        ct = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
+        errs, (program, coef, need_l2) = _bwd_check(kernel, params, x1c, x1c, v, ct, False)
+        run = lambda: kops.matvec_bwd_cuda(program, coef, x1c, x1c, v, ct, need_l2=need_l2,
+                                           want_dx=False)
+        plain = lambda: kops.gram_matvec_vjp_reference(program, coef, x1c, x1c, v, ct,
+                                                       need_l2=need_l2, want_dx=False)
+        # plain, kernel, kernel, plain: compare within one call, in turns
+        plain_a = _time_ms(plain, 1)
+        ms_a = _time_ms(run, 3)
+        ms_b = _time_ms(run, 3)
+        plain_b = _time_ms(plain, 1)
+        timed[r] = {"kernel": "gram_matvec_bwd", "n": N_BIG, "r": r, **errs,
+                    "max_abs_err": errs["coef_abs_err"],
+                    "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+                    "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b]}
+    emit("kernels_bwd_timed", kernel="RBF(sigma=1, lengthscale=2)", plain="fp32 plain VJP",
+         rows=list(timed.values()))
+    return timed[max(BWD_R)]
+
+
+def _rel_params(a, b) -> float:
+    return max(abs(float(a[k]) - float(b[k])) / abs(float(b[k])) for k in b)
+
+
+def phase_train_exact(device, gen: np.random.Generator) -> None:
+    n = N_EXACT
+    x = gen.uniform(-5.0, 5.0, (n, D))
+    y = np.sin(0.9 * x.sum(axis=1)) + 0.02 * gen.standard_normal(n)
+    fit = dict(optimize=True, max_iters=50, optimizer="adam", transform="log")
+
+    def train(dtype, **overrides):
+        model = GPRegressor(ops.RBF(), noise_variance=5e-4, device=device)
+        lml0 = float(gp.log_marginal_likelihood(
+            ops.RBF(), convert.params_from_numpy(model.params, device=device),
+            torch.tensor(x, dtype=dtype, device=device),
+            torch.tensor(y, dtype=dtype, device=device), noise_variance=5e-4))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(torch.tensor(x, dtype=dtype), torch.tensor(y, dtype=dtype),
+                  **{**fit, **overrides})
+        torch.cuda.synchronize()
+        return model, lml0, time.perf_counter() - t0
+
+    # warm-up: the first backward through the float64 Cholesky loads its
+    # kernels and handles (on an H100 the first 50-step run took 10.5 s,
+    # the next 3.5 s)
+    for dtype in (torch.float32, torch.float64):
+        train(dtype, max_iters=2)
+    model, lml0, seconds = train(torch.float32)
+    ref, ref_lml0, ref_seconds = train(torch.float64)
+    lml, ref_lml = float(model.lml_), float(ref.lml_)
+    rel_lml = abs(lml - ref_lml) / abs(ref_lml)
+    rel_params = _rel_params(model.params, ref.params)
+    emit("train_exact", n=n, d=D, dtype="float32", iters=50, optimizer="adam",
+         transform="log", seconds=seconds, seconds_float64=ref_seconds,
+         lml_start=lml0, lml=lml, lml_float64=ref_lml, rel_lml=rel_lml,
+         params={k: float(v) for k, v in model.params.items()},
+         params_float64={k: float(v) for k, v in ref.params.items()},
+         rel_params=rel_params, gates={"lml": GATE_LML, "params": GATE_PARAMS})
+    require(np.isfinite(lml) and lml > lml0, "exact training raised the LML")
+    require(rel_lml <= GATE_LML and rel_params <= GATE_PARAMS,
+            "fp32 training within the gates of the float64 run")
+
+
+def phase_train_large(device, gen: np.random.Generator) -> dict:
+    kernel = ops.RBF()
+    x, y, _ = _cg_problem(device, gen, N_BIG)
+    p0 = convert.params_from_numpy({"sigma": 1.3, "lengthscale": 1.7}, device=device,
+                                   dtype=torch.float32)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = opt.tune_large_scale(kernel, p0, x, y, noise_variance=1e-2, steps=TRAIN_STEPS,
+                               num_probes=TRAIN_PROBES, precond_rank=TRAIN_RANK,
+                               cg_tol=1e-4, cg_max_iters=200)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kops.launch_counts)
+    trace = [float(t) for t in res.lml_trace]
+    params = {k: float(v) for k, v in res.params.items()}
+    emit("train_large", n=N_BIG, d=D, steps=TRAIN_STEPS, num_probes=TRAIN_PROBES,
+         rank=TRAIN_RANK, cg_tol=1e-4, seconds=seconds, seconds_per_step=seconds / TRAIN_STEPS,
+         cg_iters=list(res.cg_iters), surrogate_trace=trace, params=params,
+         launches=counts)
+    require(all(np.isfinite(trace)), "finite surrogate trace")
+    require(abs(params["sigma"] - 1.3) > 1e-4 and abs(params["lengthscale"] - 1.7) > 1e-4,
+            "training moved the params")
+    require(counts["gram_matvec_sym"] > 0, "K3 launched in training")
+    require(counts["gram_matvec_bwd"] == 2 * TRAIN_STEPS, "two K4 launches per step")
+
+    # at n = 4096 with the kernels on: the estimator against the exact LML,
+    # on the JAX suite's problem (tests/test_large_scale.py: d = 3, noise 0.05)
+    x64 = torch.tensor(gen.uniform(-5, 5, (N_PARITY, 3)), device=device)
+    y64 = torch.sin(0.9 * x64.sum(dim=1)) + 0.05 * torch.tensor(
+        gen.standard_normal(N_PARITY), device=device)
+    xs, ys = x64.float(), y64.float()
+    p64 = convert.params_from_numpy({"sigma": 1.3, "lengthscale": 1.7}, device=device,
+                                    dtype=torch.float64)
+    for leaf in p64.values():
+        leaf.requires_grad_(True)
+    exact = gp.log_marginal_likelihood(kernel, p64, x64, y64, noise_variance=1e-2)
+    g_exact = torch.autograd.grad(exact, list(p64.values()))
+    p32 = {k: v.detach().float().requires_grad_(True) for k, v in p64.items()}
+    before = kops.launch_counts["gram_matvec_bwd"]
+    est = opt.lml_surrogate(kernel, p32, xs, ys, torch.Generator(device=device).manual_seed(1),
+                            noise_variance=1e-2, num_probes=64, cg_tol=1e-5,
+                            cg_max_iters=1000, precond_rank=512)
+    g_est = torch.autograd.grad(est, list(p32.values()))
+    require(kops.launch_counts["gram_matvec_bwd"] == before + 2, "the estimator ran K4")
+    grad_rel = {k: abs(float(a) - float(b)) / abs(float(b))
+                for k, a, b in zip(p64, g_est, g_exact)}
+    lml0 = float(exact.detach())
+    small = opt.tune_large_scale(kernel, {k: v.detach().float() for k, v in p64.items()},
+                                 xs, ys, noise_variance=1e-2, steps=10, num_probes=8,
+                                 cg_tol=1e-5, cg_max_iters=1000, precond_rank=512,
+                                 learning_rate=0.1)
+    lml1 = float(gp.log_marginal_likelihood(
+        kernel, {k: v.double() for k, v in small.params.items()}, x64, y64,
+        noise_variance=1e-2))
+    emit("train_large_parity", n=N_PARITY, grad_rel_err=grad_rel, gate_grad=0.1,
+         grad_estimate=[float(g) for g in g_est], grad_exact=[float(g) for g in g_exact],
+         lml_before=lml0, lml_after_10_steps=lml1, gate_rise=1.0,
+         cg_iters=list(small.cg_iters))
+    require(max(grad_rel.values()) < 0.1, "surrogate gradient within 0.1 of the exact one")
+    require(lml1 > lml0 + 1.0, "10 matrix-free steps raised the exact LML by more than 1")
+    return counts
+
+
 def main() -> int:
     phase_device()
     device = torch.device("cuda", 0)
@@ -306,8 +559,11 @@ def main() -> int:
     timings = phase_kernels(device, gen)
     phase_exact(device, gen)
     launches = phase_matrix_free(device, gen)
+    timings["gram_matvec_bwd"] = phase_kernels_bwd(device, gen)
+    phase_train_exact(device, gen)
+    launches["gram_matvec_bwd"] = phase_train_large(device, gen)["gram_matvec_bwd"]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
          "plain_ms": t["plain_ms"]}
         for name, t in timings.items()

@@ -3,8 +3,8 @@ this repository's JAX package for NVIDIA Hopper GPUs.
 
 Same layout as the JAX package: ``ops`` (distances, kernel algebra, and the
 hand-written CUDA matvec under ``ops.cuda``) -> ``linalg`` (jittered
-Cholesky, triangular solves, CG, Nyström) -> ``gp`` (regression) ->
-``models`` (the estimator facade). ``convert`` carries kernels and params
+Cholesky, triangular solves, CG, Nyström) -> ``gp`` (regression) -> ``opt``
+(LML training, exact and matrix-free) -> ``models`` (the estimator facade). ``convert`` carries kernels and params
 over from the JAX package. This package never imports JAX.
 """
 
@@ -12,5 +12,6 @@ from gaussian_process_tpu_torch import config  # noqa: F401
 from gaussian_process_tpu_torch import ops  # noqa: F401
 from gaussian_process_tpu_torch import linalg  # noqa: F401
 from gaussian_process_tpu_torch import gp  # noqa: F401
+from gaussian_process_tpu_torch import opt  # noqa: F401
 from gaussian_process_tpu_torch import models  # noqa: F401
 from gaussian_process_tpu_torch import convert  # noqa: F401

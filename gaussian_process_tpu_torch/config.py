@@ -1,9 +1,9 @@
 """Frozen configuration dataclasses.
 
 Plain dataclasses carried over from the JAX package's ``config.py``
-(``SolveConfig``) with the same field names and defaults, so a config built
-for one package means the same thing in the other. Only the fields the
-regression serving path reads are here.
+(``SolveConfig``, ``GradientAscentConfig``) with the same field names and
+defaults, so a config built for one package means the same thing in the
+other. Only the configs of the ported paths are here.
 """
 
 from __future__ import annotations
@@ -27,4 +27,15 @@ class SolveConfig:
     cg_precondition: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class GradientAscentConfig:
+    """LML gradient-based hyperparameter optimisation (``opt.gradient``)."""
+
+    learning_rate: float = 0.01  # [ref: tune_hyperparms_regression.py:63]
+    tol: float = 1e-3  # |delta LML| stop criterion [ref: tune_hyperparms_regression.py:117]
+    max_iters: int = 10000  # [ref: tune_hyperparms_regression.py:121]
+    optimizer: str = "sgd"  # "sgd" reproduces the reference's ascent; "adam" for production
+
+
 DEFAULT_SOLVE = SolveConfig()
+DEFAULT_GA = GradientAscentConfig()

@@ -1,6 +1,6 @@
-"""Carry kernels and hyperparameters over from the JAX package.
+"""Carry kernels and hyperparameters between the JAX package and the port.
 
-Both functions are duck-typed and import nothing of JAX: a JAX kernel is
+The functions are duck-typed and import nothing of JAX: a JAX kernel is
 recognised by its class name and dataclass fields, and a JAX array by the
 ``__array__`` protocol that numpy reads.
 """
@@ -63,5 +63,18 @@ def params_from_numpy(
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.array(x))  # a copy: the source may be read-only
         return x.to(device=x.device if device is None else device, dtype=dtype or x.dtype)
+
+    return _k.tree_map_params(leaf, params)
+
+
+def params_to_numpy(params):
+    """A params tree of tensors (or anything numpy reads) as the same tree
+    of numpy arrays, detached and on the host: the form the JAX package
+    takes back."""
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x)
 
     return _k.tree_map_params(leaf, params)

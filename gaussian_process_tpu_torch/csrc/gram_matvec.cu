@@ -37,85 +37,12 @@
 // Simple SIMT fp32 code: wgmma, TMA pipelining and a tf32x3 output product
 // are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "gram_matvec_common.cuh"
 
 namespace {
 
-// Opcodes: keep in sync with gaussian_process_tpu_torch/ops/cuda/kernel_ops.py.
-constexpr int OP_ZERO = 0;
-constexpr int OP_RBF = 1;               // c0 exp(c1 sq)
-constexpr int OP_MATERN12 = 2;          // c0 exp(-c1 l2)
-constexpr int OP_MATERN32 = 3;          // s = c1 l2: c0 (1 + s) exp(-s)
-constexpr int OP_MATERN52 = 4;          // s = c1 l2: c0 (1 + s + s^2/3) exp(-s)
-constexpr int OP_PERIODIC = 5;          // s = sin(c0 l2): exp(c1 s^2)
-constexpr int OP_DECAYED_PERIODIC = 6;  // s = sin(c2 l2): c0 exp(c1 sq + c3 s^2)
-constexpr int OP_RQ = 7;                // c0 exp(c2 log1p(c1 sq))
-constexpr int OP_SCALE = 8;             // top *= c0
-constexpr int OP_ADD = 9;
-constexpr int OP_MUL = 10;
-
-constexpr int MAX_INSTR = 64;
-constexpr int MAX_COEF = 256;
-constexpr int MAX_STACK = 8;
-constexpr int TILE = 64;          // x1 rows and x2 rows per tile
-constexpr int THREADS = 256;      // 16 x 16 threads
 constexpr int TM = 4;             // output rows per thread (16 row groups x 4)
-constexpr int KS_LD = TILE + 1;   // padded row of the K tile in shared memory
 constexpr int MAX_TR = 8;         // up to 16 * 8 = 128 V columns per block
-
-__device__ __forceinline__ float eval_leaf(int op, const float* c, float sq, float l2) {
-  switch (op) {
-    case OP_RBF:
-      return c[0] * expf(c[1] * sq);
-    case OP_MATERN12:
-      return c[0] * expf(-c[1] * l2);
-    case OP_MATERN32: {
-      float s = c[1] * l2;
-      return c[0] * (1.0f + s) * expf(-s);
-    }
-    case OP_MATERN52: {
-      float s = c[1] * l2;
-      return c[0] * (1.0f + s + s * s * (1.0f / 3.0f)) * expf(-s);
-    }
-    case OP_PERIODIC: {
-      float s = sinf(c[0] * l2);
-      return expf(c[1] * s * s);
-    }
-    case OP_DECAYED_PERIODIC: {
-      float s = sinf(c[2] * l2);
-      return c[0] * expf(c[1] * sq + c[3] * s * s);
-    }
-    case OP_RQ:
-      return c[0] * expf(c[2] * log1pf(c[1] * sq));
-    default:
-      return 0.0f;
-  }
-}
-
-__device__ __forceinline__ float eval_tree(const int* prog, const float* coef, int n_instr,
-                                           float sq, float l2) {
-  if (n_instr == 1) return eval_leaf(prog[0], coef + prog[1], sq, l2);
-  float st[MAX_STACK];
-  int sp = 0;
-#pragma unroll 1
-  for (int k = 0; k < n_instr; ++k) {
-    const int op = prog[2 * k];
-    const int off = prog[2 * k + 1];
-    if (op == OP_ADD) {
-      st[sp - 2] += st[sp - 1];
-      --sp;
-    } else if (op == OP_MUL) {
-      st[sp - 2] *= st[sp - 1];
-      --sp;
-    } else if (op == OP_SCALE) {
-      st[sp - 1] *= coef[off];
-    } else {
-      st[sp++] = eval_leaf(op, coef + off, sq, l2);
-    }
-  }
-  return st[0];
-}
 
 struct Smem {
   float* coef;
@@ -142,27 +69,6 @@ __device__ __forceinline__ Smem carve(float* smem, int rt, int d, bool two_v) {
   s.xa = s.vb + (two_v ? TILE * rt : 0);
   s.xbt = s.xa + TILE * d;
   return s;
-}
-
-__device__ __forceinline__ void load_program(const Smem& s, const int* prog, int n_instr,
-                                             const float* coef, int n_coef) {
-  for (int i = threadIdx.x; i < n_coef; i += THREADS) s.coef[i] = coef[i];
-  for (int i = threadIdx.x; i < 2 * n_instr; i += THREADS) s.prog[i] = prog[i];
-}
-
-// rows [row0, row0 + TILE) of x (n x d) into dst, row-major or transposed;
-// rows past n are zero.
-__device__ __forceinline__ void load_x(float* dst, const float* x, int row0, int n, int d,
-                                       bool transpose) {
-  for (int idx = threadIdx.x; idx < TILE * d; idx += THREADS) {
-    const int rr = idx / d, k = idx - rr * d;
-    const int row = row0 + rr;
-    const float val = row < n ? x[(size_t)row * d + k] : 0.0f;
-    if (transpose)
-      dst[k * TILE + rr] = val;
-    else
-      dst[idx] = val;
-  }
 }
 
 // rows [row0, row0 + TILE) and columns [c0, c0 + rt) of v (m x r) into dst
@@ -227,7 +133,7 @@ __global__ void __launch_bounds__(THREADS)
   const int row0 = blockIdx.x * TILE;
   const int c0 = blockIdx.y * RT;
 
-  load_program(s, prog, n_instr, coef, n_coef);
+  load_program(s.coef, s.prog, prog, n_instr, coef, n_coef);
   load_x(s.xa, x1, row0, n, d, false);
 
   float acc[TM][TR];
@@ -298,7 +204,7 @@ __global__ void __launch_bounds__(THREADS)
   const long long tj = ti + (t - start(ti));
   const int row_i = (int)ti * TILE, row_j = (int)tj * TILE;
 
-  load_program(s, prog, n_instr, coef, n_coef);
+  load_program(s.coef, s.prog, prog, n_instr, coef, n_coef);
   load_x(s.xa, x, row_i, n, d, false);
   load_x(s.xbt, x, row_j, n, d, true);
   load_v(s.va, v, row_j, n, c0, r, RT);
@@ -328,18 +234,6 @@ __global__ void __launch_bounds__(THREADS)
 int column_tiles(int r) {  // 16-column groups a block holds, 1..MAX_TR
   int tr = (r + 15) / 16;
   return tr < 1 ? 1 : (tr > MAX_TR ? MAX_TR : tr);
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
-}
-
-bool bad_program(int n_instr, int n_coef) {
-  return n_instr < 1 || n_instr > MAX_INSTR || n_coef < 0 || n_coef > MAX_COEF;
 }
 
 }  // namespace

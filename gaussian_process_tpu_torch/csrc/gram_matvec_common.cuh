@@ -1,0 +1,227 @@
+// Shared by the forward sweeps (gram_matvec.cu) and the backward sweep
+// (gram_matvec_bwd.cu): the postfix program's opcodes, the per-entry leaf
+// arithmetic and its hand-written derivatives, and the tile loaders. Keeping
+// one copy means the backward differentiates exactly the function that the
+// forward evaluates.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+// Opcodes: keep in sync with gaussian_process_tpu_torch/ops/cuda/kernel_ops.py.
+constexpr int OP_ZERO = 0;
+constexpr int OP_RBF = 1;               // c0 exp(c1 sq)
+constexpr int OP_MATERN12 = 2;          // c0 exp(-c1 l2)
+constexpr int OP_MATERN32 = 3;          // s = c1 l2: c0 (1 + s) exp(-s)
+constexpr int OP_MATERN52 = 4;          // s = c1 l2: c0 (1 + s + s^2/3) exp(-s)
+constexpr int OP_PERIODIC = 5;          // s = sin(c0 l2): exp(c1 s^2)
+constexpr int OP_DECAYED_PERIODIC = 6;  // s = sin(c2 l2): c0 exp(c1 sq + c3 s^2)
+constexpr int OP_RQ = 7;                // c0 exp(c2 log1p(c1 sq))
+constexpr int OP_SCALE = 8;             // top *= c0
+constexpr int OP_ADD = 9;
+constexpr int OP_MUL = 10;
+
+constexpr int MAX_INSTR = 64;
+constexpr int MAX_COEF = 256;
+constexpr int MAX_STACK = 8;
+constexpr int TILE = 64;          // x1 rows and x2 rows per tile
+constexpr int THREADS = 256;      // threads per block
+constexpr int KS_LD = TILE + 1;   // padded row of a 64 x 64 tile in shared memory
+
+__device__ __forceinline__ float eval_leaf(int op, const float* c, float sq, float l2) {
+  switch (op) {
+    case OP_RBF:
+      return c[0] * expf(c[1] * sq);
+    case OP_MATERN12:
+      return c[0] * expf(-c[1] * l2);
+    case OP_MATERN32: {
+      float s = c[1] * l2;
+      return c[0] * (1.0f + s) * expf(-s);
+    }
+    case OP_MATERN52: {
+      float s = c[1] * l2;
+      return c[0] * (1.0f + s + s * s * (1.0f / 3.0f)) * expf(-s);
+    }
+    case OP_PERIODIC: {
+      float s = sinf(c[0] * l2);
+      return expf(c[1] * s * s);
+    }
+    case OP_DECAYED_PERIODIC: {
+      float s = sinf(c[2] * l2);
+      return c[0] * expf(c[1] * sq + c[3] * s * s);
+    }
+    case OP_RQ:
+      return c[0] * expf(c[2] * log1pf(c[1] * sq));
+    default:
+      return 0.0f;
+  }
+}
+
+// Number of coefficients a leaf reads.
+__device__ __forceinline__ int leaf_coefs(int op) {
+  switch (op) {
+    case OP_DECAYED_PERIODIC:
+      return 4;
+    case OP_RQ:
+      return 3;
+    case OP_ZERO:
+      return 0;
+    default:
+      return 2;
+  }
+}
+
+// A leaf's value k and its derivatives: dc[j] = dk/dc_j (zero past the
+// leaf's coefficients) and dsq = dk/dsq, with l2 = sqrt(sq) folded in.
+//
+// For the families that read l2, dk/dsq = (dk/dl2) / (2 l2), which diverges
+// where two points coincide (sq = 0). The derivative of the kernel with
+// respect to a point is dk/dsq * 2 (a - b), and a - b = 0 there, so this
+// function returns dsq = 0 at sq = 0: coincident pairs add nothing to the
+// x-gradient (the true derivative for every smooth family, and the zero
+// subgradient at Matern 1/2's kink). The coefficient derivatives never
+// carry the 1/l2 factor, so they stay finite everywhere. Matern 3/2 and
+// 5/2 have a dk/dl2 proportional to l2 and use the cancelled closed form.
+__device__ __forceinline__ void leaf_grad(int op, const float* c, float sq, float l2,
+                                          float& k, float (&dc)[4], float& dsq) {
+  dc[0] = dc[1] = dc[2] = dc[3] = 0.0f;
+  const float inv_2l2 = l2 > 0.0f ? 0.5f / l2 : 0.0f;
+  switch (op) {
+    case OP_RBF: {
+      const float e = expf(c[1] * sq);
+      k = c[0] * e;
+      dc[0] = e;
+      dc[1] = k * sq;
+      dsq = k * c[1];
+      break;
+    }
+    case OP_MATERN12: {
+      const float e = expf(-c[1] * l2);
+      k = c[0] * e;
+      dc[0] = e;
+      dc[1] = -k * l2;
+      dsq = -k * c[1] * inv_2l2;
+      break;
+    }
+    case OP_MATERN32: {
+      const float s = c[1] * l2, e = expf(-s);
+      k = c[0] * (1.0f + s) * e;
+      dc[0] = (1.0f + s) * e;
+      const float ce = c[0] * e;
+      dc[1] = -ce * s * l2;             // dk/ds = -c0 s e, ds/dc1 = l2
+      dsq = -0.5f * ce * c[1] * c[1];   // dk/ds * c1 / (2 l2)
+      break;
+    }
+    case OP_MATERN52: {
+      const float s = c[1] * l2, e = expf(-s);
+      const float p = 1.0f + s + s * s * (1.0f / 3.0f);
+      k = c[0] * p * e;
+      dc[0] = p * e;
+      const float ce = c[0] * e;
+      dc[1] = -ce * s * (1.0f + s) * (1.0f / 3.0f) * l2;         // dk/ds = -c0 e s (1 + s) / 3
+      dsq = -ce * c[1] * c[1] * (1.0f + s) * (1.0f / 6.0f);     // dk/ds * c1 / (2 l2)
+      break;
+    }
+    case OP_PERIODIC: {
+      float sn, cs;
+      sincosf(c[0] * l2, &sn, &cs);
+      k = expf(c[1] * sn * sn);
+      const float dk_dsarg = k * c[1] * 2.0f * sn * cs;  // dk / d(c0 l2)
+      dc[0] = dk_dsarg * l2;
+      dc[1] = k * sn * sn;
+      dsq = dk_dsarg * c[0] * inv_2l2;
+      break;
+    }
+    case OP_DECAYED_PERIODIC: {
+      float sn, cs;
+      sincosf(c[2] * l2, &sn, &cs);
+      const float e = expf(c[1] * sq + c[3] * sn * sn);
+      k = c[0] * e;
+      dc[0] = e;
+      dc[1] = k * sq;
+      dc[3] = k * sn * sn;
+      const float dk_dsarg = k * c[3] * 2.0f * sn * cs;  // dk / d(c2 l2)
+      dc[2] = dk_dsarg * l2;
+      dsq = k * c[1] + dk_dsarg * c[2] * inv_2l2;
+      break;
+    }
+    case OP_RQ: {
+      const float u = c[1] * sq;
+      const float lg = log1pf(u);
+      const float e = expf(c[2] * lg);
+      k = c[0] * e;
+      dc[0] = e;
+      const float kc2_1pu = k * c[2] / (1.0f + u);
+      dc[1] = kc2_1pu * sq;
+      dc[2] = k * lg;
+      dsq = kc2_1pu * c[1];
+      break;
+    }
+    default:
+      k = 0.0f;
+      dsq = 0.0f;
+      break;
+  }
+}
+
+__device__ __forceinline__ float eval_tree(const int* prog, const float* coef, int n_instr,
+                                           float sq, float l2) {
+  if (n_instr == 1) return eval_leaf(prog[0], coef + prog[1], sq, l2);
+  float st[MAX_STACK];
+  int sp = 0;
+#pragma unroll 1
+  for (int k = 0; k < n_instr; ++k) {
+    const int op = prog[2 * k];
+    const int off = prog[2 * k + 1];
+    if (op == OP_ADD) {
+      st[sp - 2] += st[sp - 1];
+      --sp;
+    } else if (op == OP_MUL) {
+      st[sp - 2] *= st[sp - 1];
+      --sp;
+    } else if (op == OP_SCALE) {
+      st[sp - 1] *= coef[off];
+    } else {
+      st[sp++] = eval_leaf(op, coef + off, sq, l2);
+    }
+  }
+  return st[0];
+}
+
+__device__ __forceinline__ void load_program(float* s_coef, int* s_prog, const int* prog,
+                                             int n_instr, const float* coef, int n_coef) {
+  for (int i = threadIdx.x; i < n_coef; i += THREADS) s_coef[i] = coef[i];
+  for (int i = threadIdx.x; i < 2 * n_instr; i += THREADS) s_prog[i] = prog[i];
+}
+
+// rows [row0, row0 + TILE) of x (n x d) into dst, row-major or transposed;
+// rows past n are zero.
+__device__ __forceinline__ void load_x(float* dst, const float* x, int row0, int n, int d,
+                                       bool transpose) {
+  for (int idx = threadIdx.x; idx < TILE * d; idx += THREADS) {
+    const int rr = idx / d, k = idx - rr * d;
+    const int row = row0 + rr;
+    const float val = row < n ? x[(size_t)row * d + k] : 0.0f;
+    if (transpose)
+      dst[k * TILE + rr] = val;
+    else
+      dst[idx] = val;
+  }
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  return cudaSuccess;
+}
+
+bool bad_program(int n_instr, int n_coef) {
+  return n_instr < 1 || n_instr > MAX_INSTR || n_coef < 0 || n_coef > MAX_COEF;
+}
+
+}  // namespace

@@ -201,6 +201,7 @@ class CGPosterior(NamedTuple):
     resnorm: torch.Tensor  # worst final residual norm across solves
 
 
+@torch.no_grad()
 def posterior_cg(
     kernel: _k.Kernel,
     params: _k.Params,
@@ -233,6 +234,9 @@ def posterior_cg(
     ``preconditioner``: "nystrom" (rank ``precond_rank`` landmarks),
     "jacobi", "none", or "auto" (nystrom above n = 4096, jacobi below).
     ``precond_rank=None`` scales the rank with n: min(2048, max(512, n // 50)).
+
+    Runs under ``torch.no_grad()``, as the JAX ``posterior_cg`` is never
+    differentiated: serving with trained params records no graph.
     """
     cfg = _solve_cfg(cfg)
     if noise_variance is None:

@@ -8,7 +8,7 @@ from gaussian_process_tpu_torch.linalg.cholesky import (
     safe_cholesky,
     tri_solve,
 )
-from gaussian_process_tpu_torch.linalg.cg import CGState, cg_solve
+from gaussian_process_tpu_torch.linalg.cg import CGState, cg_solve, cg_solve_grad
 from gaussian_process_tpu_torch.linalg.nystrom import (
     NystromPreconditioner,
     make_nystrom_factor,
@@ -24,6 +24,7 @@ __all__ = [
     "tri_solve",
     "CGState",
     "cg_solve",
+    "cg_solve_grad",
     "NystromPreconditioner",
     "make_nystrom_factor",
     "make_nystrom_preconditioner",

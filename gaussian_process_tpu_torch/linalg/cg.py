@@ -1,5 +1,5 @@
-"""Matrix-free preconditioned conjugate gradients (torch counterpart of the
-forward half of ``linalg/cg.py``).
+"""Matrix-free preconditioned conjugate gradients (torch counterpart of
+``linalg/cg.py``): ``cg_solve`` and the differentiable ``cg_solve_grad``.
 
 The JAX ``lax.while_loop`` becomes a Python loop. Its stop test reads the
 residual norm on the host, one device sync per iteration: at n ~ 1e5 a
@@ -13,6 +13,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from gaussian_process_tpu_torch.ops import kernels as _k
 
 class CGState(NamedTuple):
     x: torch.Tensor
@@ -108,3 +109,68 @@ def cg_solve(
         resnorm = torch.sqrt(torch.max(dot(r, r)))
         s = CGState(x, r, p, z, rz_new, s.iters + 1, resnorm)
     return s
+
+
+class _CGSolveGrad(torch.autograd.Function):
+    """x = A(params)^{-1} b, differentiated by the implicit-function
+    theorem (the JAX package's ``cg_solve_grad`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, matvec_fn, tol, max_iters, structure, b, precond_diag, *leaves):
+        params = _k.tree_unflatten(structure, leaves)
+        x = cg_solve(lambda v: matvec_fn(params, v), b, tol=tol, max_iters=max_iters,
+                     precond_diag=precond_diag).x
+        ctx.matvec_fn, ctx.tol, ctx.max_iters, ctx.structure = matvec_fn, tol, max_iters, structure
+        ctx.save_for_backward(x, precond_diag, *leaves)
+        return x
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, precond_diag, *leaves = ctx.saved_tensors
+        params = _k.tree_unflatten(ctx.structure, leaves)
+        # w = A^{-1} x_bar: one more CG solve, which is also dL/db
+        w = cg_solve(lambda v: ctx.matvec_fn(params, v), ct, tol=ctx.tol,
+                     max_iters=ctx.max_iters, precond_diag=precond_diag).x
+        want = ctx.needs_input_grad[6:]
+        d_leaves = [None] * len(leaves)
+        if any(want):
+            # params pullback dL/dp = -<w, (dA/dp) x>: one VJP of the matvec
+            with torch.enable_grad():
+                grad_leaves = [leaf.detach().requires_grad_(True) if need else leaf
+                               for leaf, need in zip(leaves, want)]
+                out = ctx.matvec_fn(_k.tree_unflatten(ctx.structure, grad_leaves), x)
+                wanted = [leaf for leaf, need in zip(grad_leaves, want) if need]
+                grads = iter(torch.autograd.grad(out, wanted, grad_outputs=-w,
+                                                 allow_unused=True))
+            for i, need in enumerate(want):
+                if need:
+                    g = next(grads)
+                    d_leaves[i] = torch.zeros_like(leaves[i]) if g is None else g
+        d_pre = None if precond_diag is None else torch.zeros_like(precond_diag)
+        return (None, None, None, None, w, d_pre, *d_leaves)
+
+
+def cg_solve_grad(
+    matvec_fn: Callable,
+    tol: float,
+    max_iters: int,
+    params,
+    b: torch.Tensor,
+    precond_diag: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Differentiable matrix-free solve x = A(params)^{-1} b for SPD A.
+
+    ``matvec_fn(params, v)`` applies the full operator (kernel matvec plus
+    any noise shift); ``params`` is a tree of tensors whose leaves become
+    the Function's inputs. Reverse mode does not unroll the CG loop:
+
+        dL/db      = A^{-1} x_bar            (one more CG solve)
+        dL/dparams = -w^T (dA/dparams) x,  w = A^{-1} x_bar
+
+    where the params pullback is one VJP of ``matvec_fn`` at the solved x;
+    with ``ops.cuda.gram_matvec`` that VJP is the CUDA backward sweep.
+    ``precond_diag`` only changes the convergence speed, so its gradient is
+    zero.
+    """
+    leaves = _k.tree_leaves(params)
+    return _CGSolveGrad.apply(matvec_fn, tol, max_iters, params, b, precond_diag, *leaves)

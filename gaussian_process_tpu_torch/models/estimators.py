@@ -14,14 +14,15 @@ import torch
 from gaussian_process_tpu_torch import convert as _convert
 from gaussian_process_tpu_torch.gp import regression as _reg
 from gaussian_process_tpu_torch.ops import kernels as _k
+from gaussian_process_tpu_torch.opt import gradient as _grad
 
 
 class GPRegressor:
-    """Exact GP regression (R&W Alg. 2.1) with a matrix-free solver for
-    large n.
+    """Exact GP regression (R&W Alg. 2.1) with optional LML hyperparameter
+    optimisation by autograd, and a matrix-free solver for large n.
 
     >>> model = GPRegressor(ops.RBF(), noise_variance=5e-4, device="cuda")
-    >>> model.fit(x_train, y_train)
+    >>> model.fit(x_train, y_train, optimize=True)
     >>> mean, std = model.predict(x_test, return_std=True)
 
     ``device``: where the training data, the params and the computation
@@ -49,25 +50,50 @@ class GPRegressor:
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
-    def fit(self, x, y, *, optimize: bool = False) -> "GPRegressor":
-        """Store the training set and its log marginal likelihood."""
-        if optimize:
-            raise NotImplementedError(
-                "hyperparameter optimisation is not ported yet: ROADMAP.md "
-                "queue 1, item 8 (opt/gradient.py)"
-            )
+    def fit(
+        self,
+        x,
+        y,
+        *,
+        optimize: bool = False,
+        learning_rate: float = 0.01,
+        max_iters: int = 1000,
+        optimizer: str = "adam",
+        transform: str = "log",
+        trainable=None,
+    ) -> "GPRegressor":
+        """Store the training set; optionally maximise the LML over the
+        kernel hyperparameters (``opt.tune_gradient_ascent``). The params
+        kept are detached tensors."""
         self.x_train = self._to_device(x)
         self.y_train = self._to_device(y)
         self.device = self.x_train.device
         self.params = _convert.params_from_numpy(self.params, device=self.device)
-        self.lml_ = _reg.log_marginal_likelihood(
-            self.kernel,
-            self.params,
-            self.x_train,
-            self.y_train,
-            noise_variance=self.noise_variance,
-            dist_method=self.dist_method,
-        )
+        if optimize:
+            res = _grad.tune_gradient_ascent(
+                self.kernel,
+                self.params,
+                self.x_train,
+                self.y_train,
+                noise_variance=self.noise_variance,
+                learning_rate=learning_rate,
+                max_iters=max_iters,
+                optimizer=optimizer,
+                transform=transform,
+                trainable=trainable,
+                dist_method=self.dist_method,
+            )
+            self.params = res.params
+            self.lml_ = res.lml
+        else:
+            self.lml_ = _reg.log_marginal_likelihood(
+                self.kernel,
+                self.params,
+                self.x_train,
+                self.y_train,
+                noise_variance=self.noise_variance,
+                dist_method=self.dist_method,
+            )
         return self
 
     def _check_fitted(self):

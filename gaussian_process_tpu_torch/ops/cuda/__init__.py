@@ -3,8 +3,15 @@
 from gaussian_process_tpu_torch.ops.cuda.kernel_ops import (
     gram_matvec,
     gram_matvec_reference,
+    gram_matvec_vjp_reference,
     launch_counts,
     reset_launch_counts,
 )
 
-__all__ = ["gram_matvec", "gram_matvec_reference", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "gram_matvec",
+    "gram_matvec_reference",
+    "gram_matvec_vjp_reference",
+    "launch_counts",
+    "reset_launch_counts",
+]

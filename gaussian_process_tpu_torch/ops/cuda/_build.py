@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 ``nvcc`` compiles ``gaussian_process_tpu_torch/csrc/*.cu`` for ``sm_90a``
-into a shared library with a plain C interface, under
-``gaussian_process_tpu_torch/_build/`` (listed in ``.gitignore``). The file
-name carries a hash of the sources and flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import
+(one process per source, in parallel) and links them into a shared library
+with a plain C interface, under ``gaussian_process_tpu_torch/_build/``
+(listed in ``.gitignore``). The file name carries a hash of the sources,
+the shared header and the flags, so an edited source is rebuilt and a
+stale library is never loaded. Nothing here runs at import
 time; :func:`load` is called by the kernel wrappers on their first launch.
 """
 
@@ -23,10 +24,11 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("gram_matvec.cu",)
+SOURCES = ("gram_matvec.cu", "gram_matvec_bwd.cu")
+HEADERS = ("gram_matvec_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -48,13 +50,15 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
+        h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
 
 
 def build() -> Path:
     """Compile the sources unless a library for their exact content exists.
+    One ``nvcc -c`` per source, all started together, then one link.
     Records the compile seconds and ``-Xptxas -v`` report in ``build_info``."""
     lib_path = BUILD_DIR / f"libgp_kernels_{_digest()}.so"
     if lib_path.exists():
@@ -63,27 +67,36 @@ def build() -> Path:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    # build to a private name, then rename: concurrent processes never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # build in a private directory, then rename the library: concurrent
+    # processes never load a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{Path(s).stem}.o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / s)]
+                for s, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        logs = [p.communicate() for p in procs]
+        for cmd, proc, (_, err) in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err[-8000:]}"
+                )
+        so = os.path.join(tmp, "lib.so")
+        link = [nvcc, "-shared", "-o", so, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"link failed:\n{' '.join(link)}\n{proc.stderr[-8000:]}")
+        os.replace(so, lib_path)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr[-8000:]}"
-        )
-    os.replace(tmp, lib_path)
-    (BUILD_DIR / "ptxas.log").write_text(proc.stderr)
+    ptxas = "".join(err for _, err in logs)
+    (BUILD_DIR / "ptxas.log").write_text(ptxas)
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
     build_info.update(
         seconds=seconds,
         cached=False,
         nvcc=version.stdout.strip().splitlines()[-1] if version.stdout else "",
-        ptxas=proc.stderr,
+        ptxas=ptxas,
     )
     return lib_path
 
@@ -100,5 +113,9 @@ def load() -> ctypes.CDLL:
         lib.gm_matvec_sym.restype = i
         lib.gm_smem_bytes.argtypes = [i, i, i]
         lib.gm_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_matvec_bwd.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, p]
+        lib.gm_matvec_bwd.restype = i
+        lib.gm_bwd_smem_bytes.argtypes = [i]
+        lib.gm_bwd_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib

@@ -1,18 +1,24 @@
-"""Matrix-free kernel matvec K(x1, x2) @ V on the GPU, with its plain version.
+"""Matrix-free kernel matvec K(x1, x2) @ V on the GPU, differentiable, with
+its plain versions.
 
-Torch counterpart of the forward half of
-the JAX package's ``ops/pallas/kernel_ops.py:gram_matvec``. Two
-hand-written CUDA kernels (``csrc/gram_matvec.cu``) do the work on a CUDA
+Torch counterpart of the JAX package's ``ops/pallas/kernel_ops.py:gram_matvec``
+and its custom VJP. Three hand-written CUDA kernels do the work on a CUDA
 tensor:
 
-- :func:`matvec_full_cuda` (full sweep, replaces ``_matvec_fwd_impl``);
-- :func:`matvec_sym_cuda` (same-set upper-triangle sweep, replaces
-  ``_matvec_fwd_sym_impl``).
+- :func:`matvec_full_cuda` (full sweep, ``csrc/gram_matvec.cu``, replaces
+  ``_matvec_fwd_impl``);
+- :func:`matvec_sym_cuda` (same-set upper-triangle sweep, same file,
+  replaces ``_matvec_fwd_sym_impl``);
+- :func:`matvec_bwd_cuda` (the backward sweep, ``csrc/gram_matvec_bwd.cu``,
+  replaces ``_matvec_bwd_sweep``).
 
 :func:`gram_matvec` keeps the JAX package's dispatch rule, so both packages
-pick the same sweep for the same inputs. On a CPU tensor it runs
-:func:`gram_matvec_reference`, the plain PyTorch version; on a CUDA tensor it
-launches a kernel or raises. There is no fallback from one to the other.
+pick the same sweep for the same inputs, and runs through
+``_GramMatvecFn``, whose backward gives the gradients in the coefficient
+vector, x1, x2 and V. On a CPU tensor the Function runs the plain versions
+(:func:`gram_matvec_reference`, :func:`gram_matvec_vjp_reference`); on a
+CUDA tensor it launches a kernel or raises. There is no fallback from one to
+the other.
 
 The kernel tree reaches the GPU as a postfix program: each instruction is
 (opcode, offset into a coefficient vector). Leaves push a kernel value
@@ -22,13 +28,19 @@ ADD and MUL combine the top two. The coefficients are derived from the
 params tensors on the device (``-0.5 / l^2`` and so on), so a new
 hyperparameter value needs no new build. :func:`eval_program` interprets the
 same program in torch; the tests hold it against ``ops.gram``.
+
+Gradients are taken at the coefficient level: the backward sweep returns
+dL/dcoef, and the coefficients are differentiable functions of the params
+tensors (:func:`encode`, :func:`coef_vector`), so autograd carries dL/dcoef
+on to every hyperparameter of every family. CUDA needs derivatives only of
+the leaves' closed forms in their coefficients.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,11 +61,15 @@ OP_MUL = 10
 MAX_INSTR = 64
 MAX_COEF = 256
 MAX_STACK = 8
+# the backward sweep keeps every instruction's value per entry: smaller limits
+MAX_BWD_INSTR = 16
+MAX_BWD_COEF = 16
+BWD_ROWS = 64  # x1 rows per block of the backward sweep (its partials' count)
 # largest dynamic shared memory a block may use on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 
 # launches of each kernel, counted where the wrapper launches it
-launch_counts = {"gram_matvec_full": 0, "gram_matvec_sym": 0}
+launch_counts = {"gram_matvec_full": 0, "gram_matvec_sym": 0, "gram_matvec_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -135,7 +151,8 @@ def _stack_depth(program) -> int:
 
 def coef_vector(coefs, *, dtype, device) -> torch.Tensor:
     """The coefficient list as one tensor (no host round trip for tensors
-    already on ``device``)."""
+    already on ``device``). Differentiable in every tensor coefficient, so
+    a gradient in the vector flows back to the params it was derived from."""
     if not coefs:
         return torch.zeros(1, dtype=dtype, device=device)
     return torch.stack(
@@ -222,6 +239,157 @@ def gram_matvec_reference(
     return out[:, 0] if vec_in else out
 
 
+
+
+def _safe_half_inv(l2: torch.Tensor) -> torch.Tensor:
+    """0.5 / l2, and 0 where l2 = 0 (coincident points add nothing to the
+    x-gradient: see ``leaf_grad`` in ``csrc/gram_matvec_common.cuh``)."""
+    pos = l2 > 0
+    return torch.where(pos, 0.5 / torch.where(pos, l2, torch.ones_like(l2)),
+                       torch.zeros_like(l2))
+
+
+def _leaf_grad(op: int, c: torch.Tensor, sq: torch.Tensor, l2: Optional[torch.Tensor]):
+    """A leaf's value, its derivatives in its coefficients and dk/dsq: the
+    plain version of ``leaf_grad`` in ``csrc/gram_matvec_common.cuh``,
+    formula for formula."""
+    if op == OP_RBF:
+        e = torch.exp(c[1] * sq)
+        k = c[0] * e
+        return k, [e, k * sq], k * c[1]
+    if op == OP_MATERN12:
+        e = torch.exp(-c[1] * l2)
+        k = c[0] * e
+        return k, [e, -k * l2], -k * c[1] * _safe_half_inv(l2)
+    if op == OP_MATERN32:
+        s = c[1] * l2
+        e = torch.exp(-s)
+        ce = c[0] * e
+        return ce * (1.0 + s), [(1.0 + s) * e, -ce * s * l2], -0.5 * ce * c[1] * c[1]
+    if op == OP_MATERN52:
+        s = c[1] * l2
+        e = torch.exp(-s)
+        p = 1.0 + s + s * s * (1.0 / 3.0)
+        ce = c[0] * e
+        return (ce * p, [p * e, -ce * s * (1.0 + s) * (1.0 / 3.0) * l2],
+                -ce * c[1] * c[1] * (1.0 + s) * (1.0 / 6.0))
+    if op == OP_PERIODIC:
+        arg = c[0] * l2
+        sn, cs = torch.sin(arg), torch.cos(arg)
+        k = torch.exp(c[1] * sn * sn)
+        dk_darg = k * c[1] * 2.0 * sn * cs
+        return k, [dk_darg * l2, k * sn * sn], dk_darg * c[0] * _safe_half_inv(l2)
+    if op == OP_DECAYED_PERIODIC:
+        arg = c[2] * l2
+        sn, cs = torch.sin(arg), torch.cos(arg)
+        e = torch.exp(c[1] * sq + c[3] * sn * sn)
+        k = c[0] * e
+        dk_darg = k * c[3] * 2.0 * sn * cs
+        return (k, [e, k * sq, dk_darg * l2, k * sn * sn],
+                k * c[1] + dk_darg * c[2] * _safe_half_inv(l2))
+    if op == OP_RQ:
+        u = c[1] * sq
+        lg = torch.log1p(u)
+        e = torch.exp(c[2] * lg)
+        k = c[0] * e
+        kc2 = k * c[2] / (1.0 + u)
+        return k, [e, kc2 * sq, k * lg], kc2 * c[1]
+    if op == OP_ZERO:
+        zero = torch.zeros_like(sq)
+        return zero, [], zero
+    raise ValueError(f"unknown opcode {op}")
+
+
+def _program_vjp(program, coef: torch.Tensor, sq: torch.Tensor,
+                 l2: Optional[torch.Tensor], g: torch.Tensor):
+    """Reverse pass through the postfix program on a tile, with root
+    adjoint ``g``: returns (sum over the tile of g dk/dcoef, g dk/dsq). The
+    plain version of ``tree_grad`` in ``csrc/gram_matvec_bwd.cu``."""
+    vals, kids, leaves, stack = [], [], {}, []
+    for k, (op, off) in enumerate(program):
+        if op in (OP_ADD, OP_MUL):
+            rhs, lhs = stack.pop(), stack.pop()
+            kids.append((lhs, rhs))
+            vals.append(vals[lhs] + vals[rhs] if op == OP_ADD else vals[lhs] * vals[rhs])
+        elif op == OP_SCALE:
+            child = stack.pop()
+            kids.append((child,))
+            vals.append(vals[child] * coef[off])
+        else:
+            val, dcs, dsq = _leaf_grad(op, coef[off:], sq, l2)
+            kids.append(())
+            vals.append(val)
+            leaves[k] = (dcs, dsq)
+        stack.append(k)
+    d_coef = [torch.zeros((), dtype=coef.dtype, device=coef.device)] * coef.numel()
+    adj = [None] * len(program)
+    adj[-1] = g
+    gsq = torch.zeros_like(sq)
+    for k in range(len(program) - 1, -1, -1):
+        a = adj[k]
+        if a is None:
+            continue
+        op, off = program[k]
+
+        def send(i, val):
+            adj[i] = val if adj[i] is None else adj[i] + val
+
+        if op == OP_ADD:
+            send(kids[k][0], a)
+            send(kids[k][1], a)
+        elif op == OP_MUL:
+            lhs, rhs = kids[k]
+            send(lhs, a * vals[rhs])
+            send(rhs, a * vals[lhs])
+        elif op == OP_SCALE:
+            (child,) = kids[k]
+            send(child, a * coef[off])
+            d_coef[off] = d_coef[off] + torch.sum(a * vals[child])
+        else:
+            dcs, dsq = leaves[k]
+            for j, dc in enumerate(dcs):
+                d_coef[off + j] = d_coef[off + j] + torch.sum(a * dc)
+            gsq = gsq + a * dsq
+    return torch.stack(d_coef), gsq
+
+
+def gram_matvec_vjp_reference(
+    program,
+    coef: torch.Tensor,
+    x1c: torch.Tensor,
+    x2c: torch.Tensor,
+    v: torch.Tensor,
+    ct: torch.Tensor,
+    *,
+    need_l2: bool = True,
+    want_dx: bool = True,
+    row_chunk: Optional[int] = None,
+):
+    """Plain PyTorch version of the backward sweep: for L = <ct, K(x1, x2) v>
+    returns (dL/dcoef, dL/dx1 or None), with the kernel's arithmetic (direct
+    squared differences, hand-written leaf derivatives, the same rule at
+    coincident points). Row blocks of ``row_chunk`` rows (None: about 2^24
+    entries each) bound the memory."""
+    n, d = x1c.shape
+    m = x2c.shape[0]
+    if row_chunk is None:
+        row_chunk = max(1, (1 << 24) // m)
+    d_coef = torch.zeros(coef.numel(), dtype=coef.dtype, device=coef.device)
+    d_x1 = torch.empty((n, d), dtype=x1c.dtype, device=x1c.device) if want_dx else None
+    for i in range(0, n, row_chunk):
+        a = x1c[i:i + row_chunk]
+        diffs = [a[:, k:k + 1] - x2c[None, :, k] for k in range(d)]
+        sq = sum(t * t for t in diffs)
+        l2 = torch.sqrt(sq) if need_l2 else None
+        g = ct[i:i + row_chunk] @ v.T
+        dc, gsq = _program_vjp(program, coef, sq, l2, g)
+        d_coef += dc
+        if want_dx:
+            for k in range(d):
+                d_x1[i:i + row_chunk, k] = 2.0 * torch.sum(gsq * diffs[k], dim=1)
+    return d_coef, d_x1
+
+
 # ------------------------------------------------------------ CUDA wrappers
 
 
@@ -235,49 +403,51 @@ def _check_cuda_f32(**tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _device_program(kernel, params, device):
-    program, coefs = encode(kernel, params)
-    if len(program) > MAX_INSTR or len(coefs) > MAX_COEF:
-        raise ValueError("kernel tree too large for the CUDA matvec")
+def _prog_tensor(program, max_instr: int, max_coef: int, n_coef: int, device) -> torch.Tensor:
+    if len(program) > max_instr or n_coef > max_coef:
+        raise ValueError(
+            f"kernel tree too large for the CUDA kernel: {len(program)} instructions "
+            f"(at most {max_instr}), {n_coef} coefficients (at most {max_coef})"
+        )
     if _stack_depth(program) > MAX_STACK:
-        raise ValueError("kernel tree nested too deeply for the CUDA matvec")
-    prog = torch.tensor(program, dtype=torch.int32).reshape(-1).to(device)
-    coef = coef_vector(coefs, dtype=torch.float32, device=device)
-    return prog, len(program), coef, len(coefs)
+        raise ValueError("kernel tree nested too deeply for the CUDA kernel")
+    return torch.tensor(program, dtype=torch.int32).reshape(-1).to(device)
 
 
-def _launch_args(kernel, params, x1, v, symmetric: bool):
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _forward_args(program, coef, x, v, symmetric: bool):
     from gaussian_process_tpu_torch.ops.cuda import _build
 
     lib = _build.load()
-    d = x1.shape[1]
+    d = x.shape[1]
     smem = lib.gm_smem_bytes(int(v.shape[1]), int(d), int(symmetric))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
-    prog, n_instr, coef, n_coef = _device_program(kernel, params, x1.device)
-    need_l2 = int(_k.needs_l2(kernel))
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x1.device).cuda_stream)
-    return lib, prog, n_instr, coef, n_coef, need_l2, stream
+    prog = _prog_tensor(program, MAX_INSTR, MAX_COEF, coef.numel(), x.device)
+    return lib, prog
 
 
-def matvec_full_cuda(kernel, params, x1c: torch.Tensor, x2c: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """K(x1, x2) @ v by the full-sweep CUDA kernel. Takes centred,
-    contiguous fp32 CUDA tensors x1c (n, d), x2c (m, d), v (m, r) and a
-    white-free stationary kernel; raises on anything else."""
-    _check_cuda_f32(x1=x1c, x2=x2c, v=v)
+def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.Tensor,
+                     v: torch.Tensor, *, need_l2: bool) -> torch.Tensor:
+    """K(x1, x2) @ v by the full-sweep CUDA kernel, for the postfix
+    ``program`` over the coefficient vector ``coef`` (:func:`encode`). Takes
+    centred, contiguous fp32 CUDA tensors x1c (n, d), x2c (m, d), v (m, r);
+    raises on anything else."""
+    _check_cuda_f32(coef=coef, x1=x1c, x2=x2c, v=v)
     n, d = x1c.shape
     m, r = v.shape
     if x2c.shape != (m, d):
         raise ValueError(f"x2 shape {tuple(x2c.shape)} does not match v {tuple(v.shape)}")
-    lib, prog, n_instr, coef, n_coef, need_l2, stream = _launch_args(
-        kernel, params, x1c, v, False)
+    lib, prog = _forward_args(program, coef, x1c, v, False)
     out = torch.empty((n, r), dtype=torch.float32, device=x1c.device)
     with torch.cuda.device(x1c.device):
         err = lib.gm_matvec_full(
             x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), out.data_ptr(),
-            prog.data_ptr(), n_instr, coef.data_ptr(), n_coef, n, m, d, r, need_l2,
-            stream,
+            prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(), n, m, d, r,
+            int(need_l2), _stream(x1c.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_full launch failed: cudaError {err}")
@@ -285,26 +455,133 @@ def matvec_full_cuda(kernel, params, x1c: torch.Tensor, x2c: torch.Tensor,
     return out
 
 
-def matvec_sym_cuda(kernel, params, xc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K(x, x) @ v by the upper-triangle CUDA kernel (white-free kernel,
-    centred contiguous fp32 CUDA tensors xc (n, d), v (n, r))."""
-    _check_cuda_f32(x=xc, v=v)
+def matvec_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tensor, *,
+                    need_l2: bool) -> torch.Tensor:
+    """K(x, x) @ v by the upper-triangle CUDA kernel (centred contiguous
+    fp32 CUDA tensors xc (n, d), v (n, r); ``program`` and ``coef`` as in
+    :func:`matvec_full_cuda`)."""
+    _check_cuda_f32(coef=coef, x=xc, v=v)
     n, d = xc.shape
     if v.shape[0] != n:
         raise ValueError(f"v has {v.shape[0]} rows, x has {n}")
     r = v.shape[1]
-    lib, prog, n_instr, coef, n_coef, need_l2, stream = _launch_args(
-        kernel, params, xc, v, True)
+    lib, prog = _forward_args(program, coef, xc, v, True)
     out = torch.zeros((n, r), dtype=torch.float32, device=xc.device)
     with torch.cuda.device(xc.device):
         err = lib.gm_matvec_sym(
-            xc.data_ptr(), v.data_ptr(), out.data_ptr(), prog.data_ptr(), n_instr,
-            coef.data_ptr(), n_coef, n, d, r, need_l2, stream,
+            xc.data_ptr(), v.data_ptr(), out.data_ptr(), prog.data_ptr(), len(program),
+            coef.data_ptr(), coef.numel(), n, d, r, int(need_l2), _stream(xc.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_sym launch failed: cudaError {err}")
     launch_counts["gram_matvec_sym"] += 1
     return out
+
+
+def matvec_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.Tensor,
+                    v: torch.Tensor, ct: torch.Tensor, *, need_l2: bool,
+                    want_dx: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backward sweep: for L = <ct, K(x1, x2) v>, (dL/dcoef, dL/dx1 or
+    None) by the CUDA kernel. Centred contiguous fp32 CUDA tensors x1c
+    (n, d), x2c (m, d), v (m, r), ct (n, r); trees up to MAX_BWD_INSTR
+    instructions and MAX_BWD_COEF coefficients. The kernel writes one
+    float64 partial of dL/dcoef per 64-row block; they are summed here in
+    float64."""
+    from gaussian_process_tpu_torch.ops.cuda import _build
+
+    _check_cuda_f32(coef=coef, x1=x1c, x2=x2c, v=v, ct=ct)
+    n, d = x1c.shape
+    m, r = v.shape
+    if x2c.shape != (m, d) or ct.shape != (n, r):
+        raise ValueError(
+            f"shapes x1 {tuple(x1c.shape)}, x2 {tuple(x2c.shape)}, v {tuple(v.shape)}, "
+            f"ct {tuple(ct.shape)} do not agree"
+        )
+    prog = _prog_tensor(program, MAX_BWD_INSTR, MAX_BWD_COEF, coef.numel(), x1c.device)
+    lib = _build.load()
+    smem = lib.gm_bwd_smem_bytes(int(d))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
+    n_coef = coef.numel()
+    part = torch.empty((-(-n // BWD_ROWS), n_coef), dtype=torch.float64, device=x1c.device)
+    dx = torch.empty((n, d), dtype=torch.float32, device=x1c.device) if want_dx else None
+    with torch.cuda.device(x1c.device):
+        err = lib.gm_matvec_bwd(
+            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), ct.data_ptr(), part.data_ptr(),
+            dx.data_ptr() if want_dx else None, prog.data_ptr(), len(program),
+            coef.data_ptr(), n_coef, n, m, d, r, int(need_l2), int(want_dx),
+            _stream(x1c.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"gm_matvec_bwd launch failed: cudaError {err}")
+    launch_counts["gram_matvec_bwd"] += 1
+    return part.sum(dim=0).to(coef.dtype), dx
+
+
+# ---------------------------------------------------------------- autograd
+
+
+class _Spec(NamedTuple):
+    """What ``_GramMatvecFn`` needs besides its tensors."""
+
+    kernel: _k.Kernel  # the white-free stationary tree
+    params: _k.Params  # its params (the plain forward evaluates them)
+    program: list  # encode(kernel, params)[0]
+    need_l2: bool
+    sym: bool  # the forward takes the symmetric sweep (x2 is x1)
+    row_chunk: int  # rows per block of the plain forward
+
+
+def _forward(spec: _Spec, coef, x1c, x2c, v) -> torch.Tensor:
+    if not x1c.is_cuda:
+        return gram_matvec_reference(spec.kernel, spec.params, x1c, x2c, v,
+                                     row_chunk=spec.row_chunk)
+    if spec.sym:
+        return matvec_sym_cuda(spec.program, coef, x1c, v, need_l2=spec.need_l2)
+    return matvec_full_cuda(spec.program, coef, x1c, x2c, v, need_l2=spec.need_l2)
+
+
+def _vjp(spec: _Spec, coef, x1c, x2c, v, ct, want_dx: bool):
+    if not x1c.is_cuda:
+        return gram_matvec_vjp_reference(spec.program, coef, x1c, x2c, v, ct,
+                                         need_l2=spec.need_l2, want_dx=want_dx)
+    return matvec_bwd_cuda(spec.program, coef, x1c, x2c, v, ct, need_l2=spec.need_l2,
+                           want_dx=want_dx)
+
+
+class _GramMatvecFn(torch.autograd.Function):
+    """K(x1, x2) @ v of a white-free kernel, differentiable in the
+    coefficient vector, the centred points and v (the JAX package's
+    ``_matvec_core`` with its custom VJP). Backward, each part only if asked:
+
+    - d_coef and d_x1 from one backward sweep;
+    - d_x2 from a second sweep with the roles swapped (x2, x1, ct, v), its
+      d_coef discarded (<ct, K(x1, x2) v> = <v, K(x2, x1) ct>);
+    - d_v = K(x2, x1) @ ct by the forward kernels.
+
+    A same-set call passes one tensor as x1c and x2c, so its two
+    x-gradients add. A training step needs only d_coef: one sweep."""
+
+    @staticmethod
+    def forward(ctx, coef, x1c, x2c, v, spec: _Spec):
+        ctx.save_for_backward(coef, x1c, x2c, v)
+        ctx.spec = spec
+        return _forward(spec, coef, x1c, x2c, v)
+
+    @staticmethod
+    def backward(ctx, ct):
+        coef, x1c, x2c, v = ctx.saved_tensors
+        spec = ctx.spec
+        want_coef, want_x1, want_x2, want_v = ctx.needs_input_grad[:4]
+        ct = ct.contiguous()
+        d_coef = d_x1 = d_x2 = d_v = None
+        if want_v:
+            d_v = _forward(spec, coef, x2c, x1c, ct)
+        if want_coef or want_x1:
+            d_coef, d_x1 = _vjp(spec, coef, x1c, x2c, v, ct, want_x1)
+        if want_x2:
+            _, d_x2 = _vjp(spec, coef, x2c, x1c, ct, v, True)
+        return (d_coef if want_coef else None), d_x1, d_x2, d_v, None
 
 
 # ---------------------------------------------------------------- dispatch
@@ -334,9 +611,14 @@ def gram_matvec(
     """K(x1, x2) @ v without materialising K (matrix-free; powers CG).
 
     ``v``: (m,) or (m, r). ``x2=None`` means the same set, White's diagonal
-    included. The CUDA kernels form the output product with plain fp32
-    FMAs, so the JAX package's ``dot_mode`` has no counterpart here.
-    ``row_chunk`` bounds the plain version's memory on the CPU.
+    included. Differentiable in ``params``, ``x1``, ``x2`` and ``v``: the
+    gradient of the kernel part goes through ``_GramMatvecFn`` (its backward
+    is the CUDA backward sweep on the card), White's ``white * v`` term
+    through ordinary autograd. The inputs are centred on a detached
+    mean(x1), as the JAX package's ``lax.stop_gradient`` centre. The CUDA
+    kernels form the output product with plain fp32 FMAs, so the JAX
+    package's ``dot_mode`` has no counterpart here. ``row_chunk`` bounds the
+    plain forward's memory on the CPU.
     """
     if not _k.is_stationary(kernel):
         raise ValueError("gram_matvec supports stationary kernels only")
@@ -344,10 +626,6 @@ def gram_matvec(
     x1 = _k._dist._as_2d(x1)
     vec_in = v.ndim == 1
     vv = v[:, None] if vec_in else v
-    if not x1.is_cuda:
-        out = gram_matvec_reference(kernel, params, x1, x2, vv, same=same,
-                                    row_chunk=row_chunk)
-        return out[:, 0] if vec_in else out
 
     white_var = None
     if same:
@@ -355,19 +633,15 @@ def gram_matvec(
         if kernel is None:  # pure-White kernel: diagonal matvec
             out = white_var * vv
             return out[:, 0] if vec_in else out
-        x2 = x1
-    x2 = _k._dist._as_2d(x2)
-    # centre on mean(x1), as the TPU kernels' _build_common does
-    center = torch.mean(x1, dim=0, keepdim=True)
+    center = torch.mean(x1, dim=0, keepdim=True).detach()
     x1c = (x1 - center).contiguous()
-    vc = vv.contiguous()
+    x2c = x1c if same else (_k._dist._as_2d(x2) - center).contiguous()
     sym = same and (symmetric if symmetric is not None
                     else use_symmetric(x1.shape[0], vv.shape[1]))
-    if sym:
-        out = matvec_sym_cuda(kernel, params, x1c, vc)
-    else:
-        x2c = x1c if same else (x2 - center).contiguous()
-        out = matvec_full_cuda(kernel, params, x1c, x2c, vc)
+    program, coefs = encode(kernel, params)
+    coef = coef_vector(coefs, dtype=x1.dtype, device=x1.device)
+    spec = _Spec(kernel, params, program, _k.needs_l2(kernel), sym, row_chunk)
+    out = _GramMatvecFn.apply(coef, x1c, x2c, vv.contiguous(), spec)
     if white_var is not None:
         out = out + white_var * vv
     return out[:, 0] if vec_in else out

@@ -414,3 +414,18 @@ def tree_map_params(fn, params: Params) -> Params:
     if isinstance(params, (tuple, list)):
         return type(params)(tree_map_params(fn, val) for val in params)
     return fn(params)
+
+
+def tree_leaves(params: Params) -> list:
+    """The leaves of a params tree, in the order ``tree_map_params`` visits
+    them."""
+    leaves = []
+    tree_map_params(leaves.append, params)
+    return leaves
+
+
+def tree_unflatten(structure: Params, leaves) -> Params:
+    """A tree shaped like ``structure`` holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map_params(lambda _: next(it), structure)

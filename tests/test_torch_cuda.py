@@ -79,3 +79,100 @@ def test_posterior_cg_refuses_dense_float64_at_large_n(cuda):
                                        dtype=torch.float64)
     with pytest.raises(ValueError, match="float32 inputs"):
         gp.posterior_cg(ops.RBF(), params, x, x[:, 0], x[:4])
+
+
+def _leaves_with_grad(params, dtype):
+    return kops._k.tree_map_params(
+        lambda a: a.detach().to(dtype).clone().requires_grad_(True), params)
+
+
+@pytest.mark.parametrize("same", [True, False])
+def test_params_gradient_through_cuda_matvec(cuda, same):
+    """The gradient in the hyperparameters through the CUDA gram_matvec
+    equals the plain version's (it used to be silently zero: the kernels
+    wrote into buffers with no autograd link to the params)."""
+    rng = np.random.default_rng(5)
+    kernel = ops.Sum(children=(ops.RBF(), ops.Matern(nu=2.5), ops.White()))
+    base = _params(({"sigma": 1.0, "lengthscale": 1.5}, {"sigma": 0.7, "lengthscale": 2.0},
+                    {"amplitude": 0.1}), cuda)
+    x = torch.tensor(rng.uniform(-5, 5, (700, 3)), dtype=torch.float32, device=cuda)
+    x2 = None if same else torch.tensor(rng.uniform(-5, 5, (300, 3)), dtype=torch.float32,
+                                        device=cuda)
+    m = 700 if same else 300
+    v = torch.tensor(rng.standard_normal((m, 8)), dtype=torch.float32, device=cuda)
+    w = torch.tensor(rng.standard_normal((700, 8)), dtype=torch.float32, device=cuda)
+    p32 = _leaves_with_grad(base, torch.float32)
+    p64 = _leaves_with_grad(base, torch.float64)
+    before = kops.launch_counts["gram_matvec_bwd"]
+    loss = torch.sum(w * kops.gram_matvec(kernel, p32, x, x2, v))
+    got = torch.autograd.grad(loss, kops._k.tree_leaves(p32), allow_unused=True)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram_matvec_bwd"] == before + 1
+    ref = torch.sum(w.double() * kops.gram_matvec_reference(
+        kernel, p64, x.double(), None if same else x2.double(), v.double(), same=same))
+    want = torch.autograd.grad(ref, kops._k.tree_leaves(p64), allow_unused=True)
+    for g, r in zip(got, want):
+        g = torch.zeros(()) if g is None else g.cpu()
+        r = torch.zeros((), dtype=torch.float64) if r is None else r.cpu()
+        if not same and float(r) == 0.0:  # White does not reach a cross-set matvec
+            assert float(g) == 0.0
+            continue
+        assert float(g) != 0.0
+        assert abs(float(g) - float(r)) <= 1e-3 * abs(float(r))
+
+
+BWD_FAMILIES = {
+    "rbf": (ops.RBF(), {"sigma": 1.0, "lengthscale": 1.5}),
+    "matern12": (ops.Matern(nu=0.5), {"sigma": 1.2, "lengthscale": 0.9}),
+    "periodic": (ops.Periodic(), {"period": 1.7, "lengthscale": 0.9}),
+    "rq": (ops.RationalQuadratic(), {"amplitude": 0.9, "lengthscale": 1.4, "alpha": 0.6}),
+    "scaled_product": (
+        ops.Scaled(base=ops.RBF() * ops.DecayedPeriodic()),
+        {"amplitude": 1.3, "base": ({"sigma": 1.0, "lengthscale": 2.0},
+                                    {"amplitude": 1.1, "decay": 2.5, "smoothness": 0.8,
+                                     "period": 1.3})},
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BWD_FAMILIES))
+@pytest.mark.parametrize("same", [True, False])
+def test_backward_sweep_matches_plain_vjp_on_card(cuda, name, same):
+    rng = np.random.default_rng(11)
+    kernel, params = BWD_FAMILIES[name]
+    params = _params(params, cuda)
+    n, r = 3001, 9
+    x = torch.tensor(rng.uniform(-5, 5, (n, 3)), dtype=torch.float32, device=cuda)
+    c = torch.mean(x, dim=0, keepdim=True)
+    x1c = (x - c).contiguous()
+    x2c = x1c if same else (torch.tensor(rng.uniform(-5, 5, (1507, 3)), dtype=torch.float32,
+                                         device=cuda) - c).contiguous()
+    v = torch.tensor(rng.standard_normal((x2c.shape[0], r)), dtype=torch.float32, device=cuda)
+    ct = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float32, device=cuda)
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=cuda)
+    need_l2 = kops._k.needs_l2(kernel)
+    d_coef, d_x = kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct, need_l2=need_l2,
+                                       want_dx=True)
+    torch.cuda.synchronize()
+    want, want_dx = kops.gram_matvec_vjp_reference(
+        program, kops.coef_vector(coefs, dtype=torch.float64, device=cuda), x1c.double(),
+        x2c.double(), v.double(), ct.double(), need_l2=need_l2, want_dx=True)
+    # fp32 entry products, float64 sums: 1e-3 relative per coefficient
+    assert float(torch.max(torch.abs(d_coef.double() - want) / torch.abs(want))) <= 1e-3
+    # the x-gradient sums fp32 tile partials: the forward kernels' bound
+    assert float(torch.max(torch.abs(d_x.double() - want_dx))) <= \
+        2e-4 * float(torch.max(torch.abs(want_dx)))
+
+
+def test_backward_sweep_refuses_a_large_tree(cuda):
+    kernel = ops.co2_kernel()
+    for _ in range(3):
+        kernel = kernel + ops.co2_kernel()
+    params = _params(kernel.init_params(), cuda)
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=cuda)
+    x = torch.zeros((64, 2), dtype=torch.float32, device=cuda)
+    v = torch.zeros((64, 1), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="too large"):
+        kops.matvec_bwd_cuda(program, coef, x, x, v, v, need_l2=True, want_dx=False)

@@ -1,0 +1,253 @@
+"""Gradients through the port's matrix-free matvec and CG solve, on the CPU.
+
+- ``ops.cuda.gram_matvec`` (its autograd Function, running the plain
+  versions on CPU tensors) against the JAX package's Pallas ``gram_matvec``
+  custom VJP in interpret mode, float64: gradients in params, x1, x2 and v
+  at rtol 1e-6, atol 1e-10 (the twins of ``TestGramMatvecVJP`` and
+  ``test_vjp_through_symmetric_path`` in tests/test_pallas_ops.py).
+- ``gram_matvec_vjp_reference``, the plain version of the CUDA backward
+  sweep, against torch autograd through ``gram_matvec_reference`` for every
+  leaf family and combinator, at rtol 1e-10.
+- ``linalg.cg_solve_grad`` on the quadratic LML term against the JAX
+  package's dense solve: value rtol 1e-8, gradients rtol 1e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gaussian_process_tpu import ops as jops
+from gaussian_process_tpu.ops import pallas as pops
+from gaussian_process_tpu_torch import convert
+from gaussian_process_tpu_torch import linalg as tlinalg
+from gaussian_process_tpu_torch import ops as tops
+from gaussian_process_tpu_torch.ops import kernels as tk
+from gaussian_process_tpu_torch.ops.cuda import kernel_ops as kops
+
+BOOK = np.array([66, 67, 2.4, 90, 1.3, 0.66, 1.2, 0.78, 0.18, 1.6, 0.19])
+
+
+def _pairs(a, b):
+    """Matching leaves of two params trees (dict keys matched by name: JAX
+    orders them, the port keeps insertion order)."""
+    if isinstance(a, dict):
+        for key in a:
+            yield from _pairs(a[key], b[key])
+    elif isinstance(a, (tuple, list)):
+        for x, y in zip(a, b, strict=True):
+            yield from _pairs(x, y)
+    else:
+        yield a, b
+
+
+def _grad_leaves(params):
+    """The port's params tree as float64 leaves that require grad."""
+    p = convert.params_from_numpy(params, dtype=torch.float64)
+    return tk.tree_map_params(lambda a: a.requires_grad_(True), p)
+
+
+# name: (kernel, params, n, m (None: same set), d, r (None: a vector v),
+#        which gradients to compare, symmetric flag)
+VJP_CASES = {
+    "rbf_cross_set": (jops.RBF(), {"sigma": 1.2, "lengthscale": 0.9}, 48, 40, 3, 2,
+                      ("params", "x1", "x2", "v"), None),
+    "rbf_white_same_set": (
+        jops.RBF() + jops.White(),
+        ({"sigma": 1.0, "lengthscale": 1.1}, {"amplitude": 0.5}),
+        40, None, 2, None, ("params",), None,
+    ),
+    "rbf_symmetric_sweep": (jops.RBF(), {"sigma": 1.2, "lengthscale": 0.9}, 96, None, 2, 2,
+                            ("params", "x1", "v"), True),
+    "matern32_same_set": (jops.Matern(nu=1.5), {"sigma": 1.1, "lengthscale": 0.9}, 50, None,
+                          2, 2, ("params",), None),
+    "matern52_cross_set_x2": (jops.Matern(nu=2.5), {"sigma": 1.2, "lengthscale": 1.5}, 37, 29,
+                              2, 3, ("params", "x2"), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VJP_CASES))
+def test_gram_matvec_grads_match_pallas_vjp(rng, name):
+    jkernel, jparams, n, m, d, r, wanted, sym = VJP_CASES[name]
+    x1 = rng.uniform(-3, 3, (n, d))
+    x2 = None if m is None else rng.uniform(-3, 3, (m, d))
+    rows = n if m is None else m
+    vshape = (rows,) if r is None else (rows, r)
+    oshape = (n,) if r is None else (n, r)
+    v = rng.standard_normal(vshape)
+    w = rng.standard_normal(oshape)
+    argnums = {"params": 0, "x1": 1, "x2": 2, "v": 3}
+
+    def loss_pallas(p, a, b, vv):
+        return jnp.sum(pops.gram_matvec(jkernel, p, a, b, vv, tile_m=32, tile_n=32,
+                                        interpret=True, symmetric=sym,
+                                        dtype=jnp.float64) * w)
+
+    jargs = (jax.tree_util.tree_map(jnp.asarray, jparams), jnp.asarray(x1),
+             None if x2 is None else jnp.asarray(x2), jnp.asarray(v))
+    nums = tuple(argnums[k] for k in wanted)
+    want_val = float(loss_pallas(*jargs))
+    want = dict(zip(wanted, jax.grad(loss_pallas, argnums=nums)(*jargs)))
+
+    tparams = _grad_leaves(jparams)
+    tx1 = torch.tensor(x1, requires_grad=True)
+    tx2 = None if x2 is None else torch.tensor(x2, requires_grad=True)
+    tv = torch.tensor(v, requires_grad=True)
+    out = kops.gram_matvec(convert.kernel_from_reference(jkernel), tparams, tx1, tx2, tv,
+                           symmetric=sym)
+    loss = torch.sum(out * torch.from_numpy(w))
+    np.testing.assert_allclose(float(loss.detach()), want_val, rtol=1e-10)
+    loss.backward()
+    got = {"params": tk.tree_map_params(lambda a: a.grad, tparams), "x1": tx1.grad,
+           "x2": None if tx2 is None else tx2.grad, "v": tv.grad}
+    for key in wanted:
+        for t, g in _pairs(got[key], want[key]):
+            np.testing.assert_allclose(t.numpy(), np.asarray(g), rtol=1e-6, atol=1e-10,
+                                       err_msg=key)
+
+
+BOOK_CO2 = tops.co2_params_from_vector(torch.from_numpy(BOOK))
+FAMILIES = {
+    "rbf": (tops.RBF(), {"sigma": 1.3, "lengthscale": 0.7}),
+    "matern12": (tops.Matern(nu=0.5), {"sigma": 1.2, "lengthscale": 0.9}),
+    "matern32": (tops.Matern(nu=1.5), {"sigma": 1.2, "lengthscale": 0.9}),
+    "matern52": (tops.Matern(nu=2.5), {"sigma": 1.2, "lengthscale": 0.9}),
+    "periodic": (tops.Periodic(), {"period": 1.7, "lengthscale": 0.9}),
+    "decayed_periodic": (
+        tops.DecayedPeriodic(),
+        {"amplitude": 1.1, "decay": 2.5, "smoothness": 0.8, "period": 1.3},
+    ),
+    "rq": (tops.RationalQuadratic(), {"amplitude": 0.9, "lengthscale": 1.4, "alpha": 0.6}),
+    "product_scaled": (
+        tops.Scaled(base=tops.RBF() * tops.Periodic()),
+        {"amplitude": 1.7, "base": ({"sigma": 1.0, "lengthscale": 2.0},
+                                    {"period": 1.1, "lengthscale": 0.8})},
+    ),
+    "co2_no_white": (tops.Sum(children=tops.co2_kernel().children[:4]), BOOK_CO2[:4]),
+}
+
+
+def _plain_vjp_in_params(kernel, params, x1, x2, v, ct, want_dx=True):
+    """The plain backward sweep's dL/dcoef carried to the params leaves by
+    autograd through the encoder, and its dL/dx1."""
+    leaves = tk.tree_leaves(params)
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float64, device="cpu")
+    c = x1.detach().mean(0, keepdim=True)
+    d_coef, d_x1 = kops.gram_matvec_vjp_reference(
+        program, coef.detach(), x1.detach() - c, x2.detach() - c, v, ct,
+        need_l2=tk.needs_l2(kernel), want_dx=want_dx, row_chunk=16)
+    d_leaves = torch.autograd.grad(coef, leaves, grad_outputs=d_coef, allow_unused=True)
+    return [torch.zeros(()) if g is None else g for g in d_leaves], d_x1
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_plain_vjp_matches_autograd(rng, name):
+    kernel, params = FAMILIES[name]
+    params = _grad_leaves(params)
+    # disjoint point sets: the autograd side takes sqrt at zero distance
+    x1 = torch.tensor(rng.uniform(-3, 3, (37, 2)), requires_grad=True)
+    x2 = torch.tensor(rng.uniform(-3, 3, (29, 2)))
+    v = torch.tensor(rng.standard_normal((29, 3)))
+    ct = torch.tensor(rng.standard_normal((37, 3)))
+    loss = torch.sum(ct * kops.gram_matvec_reference(kernel, params, x1, x2, v))
+    want = torch.autograd.grad(loss, [*tk.tree_leaves(params), x1])
+    d_leaves, d_x1 = _plain_vjp_in_params(kernel, params, x1, x2, v, ct)
+    for got, ref in zip([*d_leaves, d_x1], want):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_plain_vjp_at_coincident_points(rng):
+    """Same-set Matern 1/2: the JAX kernel's sqrt under vjp gives NaN x-
+    gradients on the diagonal; the port's rule adds nothing there, so d_x
+    equals the off-diagonal sum and the params gradient is unchanged."""
+    kernel, params = FAMILIES["matern12"]
+    params = _grad_leaves(params)
+    x = torch.tensor(rng.uniform(-3, 3, (30, 2)), requires_grad=True)
+    v = torch.tensor(rng.standard_normal((30, 2)))
+    ct = torch.tensor(rng.standard_normal((30, 2)))
+    d_leaves, d_x1 = _plain_vjp_in_params(kernel, params, x, x, v, ct)
+    # x plays both roles: the second sweep swaps them (x, x, ct, v)
+    _, d_x2 = _plain_vjp_in_params(kernel, params, x, x, ct, v)
+    d_x1 = d_x1 + d_x2
+    assert torch.isfinite(d_x1).all()
+    # reference: the dense gram with l2 held at zero on the diagonal
+    eye = torch.eye(30, dtype=torch.float64)
+    sq = torch.sum((x[:, None, :] - x[None, :, :]) ** 2, dim=-1)
+    l2 = torch.sqrt(sq + eye) * (1.0 - eye)
+    K = tk.eval_from_distances(kernel, params, sq, l2)
+    loss = torch.sum(ct * (K @ v))
+    want = torch.autograd.grad(loss, [*tk.tree_leaves(params), x])
+    for got, ref in zip([*d_leaves, d_x1], want):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_training_vjp_takes_one_sweep(rng, monkeypatch):
+    """With only the params requiring grad (a training step), the backward
+    runs one backward sweep and no transposed matvec."""
+    calls = []
+    real = kops.gram_matvec_vjp_reference
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs["want_dx"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(kops, "gram_matvec_vjp_reference", counted)
+    params = _grad_leaves({"sigma": 1.1, "lengthscale": 0.8})
+    x = torch.tensor(rng.uniform(-3, 3, (60, 2)))
+    v = torch.tensor(rng.standard_normal((60, 8)))
+    loss = torch.sum(v * kops.gram_matvec(tops.RBF(), params, x, None, v))
+    loss.backward()
+    assert calls == [False]
+    assert params["sigma"].grad is not None and float(params["sigma"].grad) != 0.0
+
+
+def test_cg_solve_grad_quadratic_matches_jax(rng):
+    n, d, noise = 200, 3, 1e-2
+    x = rng.uniform(-3, 3, (n, d))
+    y = rng.standard_normal(n)
+    jk, jp = jops.RBF(), {"sigma": 1.1, "lengthscale": 0.8}
+
+    def quad_dense(p):
+        Km = jops.gram(jk, p, jnp.asarray(x)) + noise * jnp.eye(n, dtype=jnp.float64)
+        return 0.5 * jnp.dot(y, jnp.linalg.solve(Km, y))
+
+    jparams = jax.tree_util.tree_map(jnp.asarray, jp)
+    want_val = float(quad_dense(jparams))
+    want = jax.grad(quad_dense)(jparams)
+
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    tk_ = convert.kernel_from_reference(jk)
+
+    def mv(p, v):
+        vv = v[:, None] if v.ndim == 1 else v
+        out = kops.gram_matvec(tk_, p, tx, None, vv)
+        out = out[:, 0] if v.ndim == 1 else out
+        return out + noise * v
+
+    params = _grad_leaves(jp)
+    val = 0.5 * torch.dot(ty, tlinalg.cg_solve_grad(mv, 1e-12, 2000, params, ty))
+    np.testing.assert_allclose(float(val.detach()), want_val, rtol=1e-8)
+    val.backward()
+    for key in ("sigma", "lengthscale"):
+        np.testing.assert_allclose(float(params[key].grad), float(want[key]), rtol=1e-6)
+
+
+def test_cg_solve_grad_rhs_gradient(rng):
+    """dL/db = A^{-1} x_bar, and precond_diag gets a zero gradient."""
+    n = 40
+    x = torch.from_numpy(rng.uniform(-3, 3, (n, 2)))
+    A = tops.gram(tops.RBF(), tops.RBF().init_params(), x) + 0.1 * torch.eye(n, dtype=torch.float64)
+    b = torch.tensor(rng.standard_normal(n), requires_grad=True)
+    pre = torch.diagonal(A).clone().requires_grad_(True)
+    w = torch.from_numpy(rng.standard_normal(n))
+    params = {"scale": torch.tensor(1.0, dtype=torch.float64, requires_grad=True)}
+    sol = tlinalg.cg_solve_grad(lambda p, v: p["scale"] * (A @ v), 1e-13, 500, params, b, pre)
+    torch.sum(w * sol).backward()
+    want_b = torch.linalg.solve(A, w)
+    np.testing.assert_allclose(b.grad.numpy(), want_b.numpy(), rtol=1e-8, atol=1e-12)
+    assert torch.count_nonzero(pre.grad) == 0
+    # d/ds of w^T (s A)^{-1} b at s = 1 is -w^T A^{-1} b
+    np.testing.assert_allclose(float(params["scale"].grad),
+                               -float(w @ torch.linalg.solve(A, b.detach())), rtol=1e-8)

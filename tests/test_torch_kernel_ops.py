@@ -178,11 +178,15 @@ def test_sweep_rule_matches_jax(monkeypatch, n, r):
 
 def test_cuda_wrappers_raise_on_cpu_tensors():
     k, p = tops.RBF(), {"sigma": torch.tensor(1.0), "lengthscale": torch.tensor(1.0)}
+    program, coefs = kops.encode(k, p)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device="cpu")
     x = torch.zeros((8, 2), dtype=torch.float32)
     v = torch.zeros((8, 3), dtype=torch.float32)
     before = dict(kops.launch_counts)
     with pytest.raises(ValueError, match="CUDA"):
-        kops.matvec_full_cuda(k, p, x, x, v)
+        kops.matvec_full_cuda(program, coef, x, x, v, need_l2=False)
     with pytest.raises(ValueError, match="CUDA"):
-        kops.matvec_sym_cuda(k, p, x, v)
+        kops.matvec_sym_cuda(program, coef, x, v, need_l2=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        kops.matvec_bwd_cuda(program, coef, x, x, v, v, need_l2=False, want_dx=True)
     assert kops.launch_counts == before

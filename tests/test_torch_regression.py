@@ -142,8 +142,10 @@ def test_regressor_facade_refuses_training_and_unfitted_use():
     model = TGPRegressor(tops.RBF())
     with pytest.raises(RuntimeError):
         model.predict(torch.zeros(3, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(torch.zeros(3, 1), torch.zeros(3), optimize=True)
+    # training is ported (tests/test_torch_opt.py); a request it cannot
+    # honour is refused
+    with pytest.raises(ValueError, match="transform"):
+        model.fit(torch.zeros(3, 1), torch.zeros(3), optimize=True, transform="softplus")
 
 
 def test_sample_prior_factor_and_covariance(rng):
