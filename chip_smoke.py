@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GP regression serving and training paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's GP regression serving and training paths and its
+Laplace classification paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,10 +12,14 @@ one JSON line:
 2. build: compiles ``gaussian_process_tpu_torch/csrc`` with ``nvcc``;
 3. kernels: each hand-written CUDA kernel against its plain PyTorch version
    on the card (fp32, max abs error <= 2e-4 * max |plain|), and both timed
-   with CUDA events at the main path's shapes (n = 102400);
+   with CUDA events at the main path's shapes (n = 102400); the tile gram
+   (K1) also within 1e-4 x max(1, max |plain|) absolute, timed at
+   n = 8192 and 102400 x {512, 2048}; its autograd wrapper (K5): gradients
+   within 1e-3 of the plain gram's in float64;
 4. exact: ``GPRegressor(...).fit(x, y).predict(..., solver="cholesky")`` at
    n = 8192, m = 2048, d = 4 in fp32, gated against the same inputs in
-   float64 on the card (rel mean 5e-4, rel LML 3e-4, rel var 2e-3);
+   float64 on the card (rel mean 5e-4, rel LML 3e-4, rel var 2e-3); it must
+   launch K1 and K5;
 5. matrix-free: ``gp.posterior_cg`` at n = 102400 (Nyström rank 2048,
    tol 1e-3) with m = 8 (the symmetric sweep) and m = 64 (the full sweep),
    checked for convergence and for launches of each kernel, then the same
@@ -29,12 +33,22 @@ one JSON line:
    it (r = 1, r = 8), timed against the plain VJP;
 7. train_exact: ``GPRegressor(...).fit(x, y, optimize=True, max_iters=50)``
    (Adam, log transform) at n = 8192 in fp32, gated against the same run in
-   float64 (rel LML 3e-4, rel params 1e-3);
+   float64 (rel LML 3e-4, rel params 1e-3); it must launch K1 and K5;
 8. train_large: ``opt.tune_large_scale`` at n = 102400 (8 probes, Nyström
    rank 2048, cg_tol 1e-4, 3 steps), which must launch K3 and exactly two
    K4 per step; then at n = 4096 the surrogate's gradient (64 probes)
    within 0.1 of the exact float64 LML gradient, and 10 steps raising the
-   exact LML by more than 1.0.
+   exact LML by more than 1.0;
+9. classify_dense: ``GPBinaryClassifier`` and ``GPMulticlassClassifier``
+   (C = 3) ``fit(..., solver="cholesky")`` and ``predict_proba`` at
+   n = 4096, m = 2048, d = 2, RBF(1, 1), fp32 gated against float64 on the
+   card (max |d prob| <= 5e-3, label agreement >= 0.999);
+10. classify_large: ``gp.laplace_fit_cg`` + ``gp.predict_binary_cg`` at
+    n = 102400 (rank 512, cg_tol 1e-4, m = 2048, chunks of 512) and
+    ``gp.laplace_fit_multiclass_cg`` + ``gp.predict_multiclass_cg`` (C = 3,
+    rank 256, chunks of 2048): both fits must converge, with K3 (Newton),
+    K2 (the binary variance solves) and K1 (cross-grams) launched; then the
+    same pipelines at n = 4096 against the dense path under the gates of 9.
 
 Then a line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -43,6 +57,7 @@ Any failure raises and exits non-zero; so does a machine without CUDA.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -51,7 +66,8 @@ import numpy as np
 import torch
 
 from gaussian_process_tpu_torch import convert, gp, ops, opt
-from gaussian_process_tpu_torch.models import GPRegressor
+from gaussian_process_tpu_torch.models import (GPBinaryClassifier, GPMulticlassClassifier,
+                                               GPRegressor)
 from gaussian_process_tpu_torch.ops import kernels as tk
 from gaussian_process_tpu_torch.ops.cuda import _build
 from gaussian_process_tpu_torch.ops.cuda import kernel_ops as kops
@@ -67,11 +83,15 @@ CG_RUNS = ((8, "gram_matvec_sym"), (64, "gram_matvec_full"))
 MAIN_R = {name: m + 1 for m, name in CG_RUNS}
 EXTRA_R = {"gram_matvec_sym": 16, "gram_matvec_full": 72}  # padded widths, checked too
 SOURCES = {
+    "gram": "gaussian_process_tpu_torch/csrc/gram.cu",
+    "gram_ad": "gaussian_process_tpu_torch/csrc/gram.cu",
     "gram_matvec_sym": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
     "gram_matvec_full": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
     "gram_matvec_bwd": "gaussian_process_tpu_torch/csrc/gram_matvec_bwd.cu",
 }
 REPLACES = {
+    "gram": "gaussian_process_tpu/ops/pallas/kernel_ops.py:141",
+    "gram_ad": "gaussian_process_tpu/ops/pallas/kernel_ops.py:695",
     "gram_matvec_sym": "gaussian_process_tpu/ops/pallas/kernel_ops.py:391",
     "gram_matvec_full": "gaussian_process_tpu/ops/pallas/kernel_ops.py:303",
     "gram_matvec_bwd": "gaussian_process_tpu/ops/pallas/kernel_ops.py:518",
@@ -82,6 +102,22 @@ BWD_COEF_RTOL = 1e-3
 BWD_R = (1, 8)  # the widths a training step hands K4: the alpha VJP, the probe VJP
 GATE_PARAMS = 1e-3  # train_exact: rel params, fp32 vs float64
 TRAIN_STEPS, TRAIN_PROBES, TRAIN_RANK = 3, 8, 2048
+# K1 against the plain gram: KERNEL_RTOL, and the JAX package's absolute
+# 1e-4 (bench.py, set on RBF(1, .) entries of at most 1) times
+# max(1, max |plain|), since co2's book amplitude makes entries near 4.4e3
+GRAM_ABS = 1e-4
+GRAD_RTOL = 1e-3  # K5's gradients against the plain gram's in float64
+# classification: the JAX laplace benches' shapes and gates
+N_CLS, M_CLS, C_CLS = 4096, 2048, 3
+CLS_CG_TOL, BIN_RANK, MC_RANK, BIN_CHUNK, MC_CHUNK = 1e-4, 512, 256, 512, 2048
+GATE_PROB, GATE_LABELS = 5e-3, 0.999
+# launches of each kernel on the main paths (each read just after its run)
+PATH_LAUNCHES = {name: 0 for name in kops.launch_counts}
+
+
+def add_launches(counts: dict) -> None:
+    for name, value in counts.items():
+        PATH_LAUNCHES[name] += value
 
 
 def emit(phase: str, **fields) -> None:
@@ -125,14 +161,45 @@ def phase_device() -> str:
     return smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """``matvec_full_kernel<8>`` from nvcc's mangled name of a kernel in a
+    source's anonymous namespace (``..._cu_<8 hex digits><length><name>``,
+    then the template arguments); the mangled name if it is not one."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled
+    end = m.end() + int(m.group(1))
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+    targs = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
+    return mangled[m.end():end] + (f"<{','.join(targs)}>" if targs else "")
+
+
+def _ptxas_usage(log: str) -> list:
+    """Per kernel instantiation: registers, stack frame and spill bytes from
+    ``nvcc -Xptxas -v``."""
+    rows, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = _kernel_name(entry.group(1))
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame and name:
+            rows.append({"kernel": name, "stack": int(frame.group(1)),
+                         "spill_stores": int(frame.group(2)),
+                         "spill_loads": int(frame.group(3))})
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and rows and rows[-1]["kernel"] == name:
+            rows[-1]["registers"] = int(regs.group(1))
+    return rows
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load()
     seconds = time.perf_counter() - t0
-    usage = [ln.strip() for ln in _build.build_info.get("ptxas", "").splitlines()
-             if "registers" in ln or "spill" in ln]
     emit("build", seconds=seconds, nvcc_seconds=_build.build_info.get("seconds"),
-         ptxas=usage)
+         ptxas=_ptxas_usage(_build.build_info.get("ptxas", "")))
 
 
 def _case_kernels(device):
@@ -234,6 +301,139 @@ def phase_kernels(device, gen: np.random.Generator) -> dict:
     return timings
 
 
+def _gram_err(got: torch.Tensor, want: torch.Tensor):
+    err = float(torch.max(torch.abs(got - want)))
+    scale = float(torch.max(torch.abs(want)))
+    require(np.isfinite(err) and err <= KERNEL_RTOL * scale
+            and err < GRAM_ABS * max(1.0, scale),
+            f"K1 error {err:.3e} within {KERNEL_RTOL} x {scale:.3e} and "
+            f"{GRAM_ABS} x max(1, {scale:.3e})")
+    return err, scale
+
+
+def _gram_launch(kernel, params, x1, x2):
+    """K1's launch alone (program, coefficients and centred inputs made
+    beforehand), as ``_GramFn``'s forward makes it."""
+    program, coefs, white_idx = kops.gram_program(kernel, params, x2 is None)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=x1.device)
+    x1c, x2c = _centred(x1, x2)
+    return lambda: kops.gram_cuda(program, coef, x1c, None if x2 is None else x2c,
+                                  white_idx=white_idx, need_l2=tk.needs_l2(kernel))
+
+
+def _in_turns(run, plain, reps: int, plain_reps: int):
+    """plain, kernel, kernel, plain: (best kernel ms, best plain ms, runs)."""
+    plain_a = _time_ms(plain, plain_reps)
+    ms_a = _time_ms(run, reps)
+    ms_b = _time_ms(run, reps)
+    plain_b = _time_ms(plain, plain_reps)
+    return {"ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+            "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b]}
+
+
+def _gram_ad_check(device, gen: np.random.Generator) -> dict:
+    """K5: gradients of sum(W * gram_ad) through K1's forward against
+    autograd through the plain gram in float64, for RBF + Matern 5/2 at
+    n = 4096, d = 3: the params same-set, the params and both point sets
+    cross-set (a same-set Matern x-gradient puts sqrt at zero on the
+    diagonal, NaN in both versions)."""
+    kernel = ops.RBF() + ops.Matern(nu=2.5)
+    base = convert.params_from_numpy(({"sigma": 1.0, "lengthscale": 1.5},
+                                      {"sigma": 0.7, "lengthscale": 2.0}), device=device)
+    n = N_PARITY
+    x1 = torch.tensor(gen.uniform(-3, 3, (n, 3)), dtype=torch.float32, device=device)
+    x2 = torch.tensor(gen.uniform(-3, 3, (n, 3)), dtype=torch.float32, device=device)
+    w = torch.tensor(gen.standard_normal((n, n)), dtype=torch.float32, device=device)
+    rows = []
+    for same in (True, False):
+        def grads(dtype, fn):
+            p = tk.tree_map_params(lambda a: a.detach().to(dtype).requires_grad_(True), base)
+            a = x1.detach().to(dtype).requires_grad_(not same)
+            b = None if same else x2.detach().to(dtype).requires_grad_(True)
+            inputs = tk.tree_leaves(p) + ([] if same else [a, b])
+            return torch.autograd.grad(torch.sum(w.to(dtype) * fn(kernel, p, a, b)), inputs)
+
+        before = kops.launch_counts["gram_ad"]
+        got = grads(torch.float32, kops.gram_ad)
+        torch.cuda.synchronize()
+        require(kops.launch_counts["gram_ad"] == before + 1, "gram_ad launched K1")
+        want = grads(torch.float64, kops.gram_reference)
+        errs = [float(torch.max(torch.abs(g.double() - r)) / torch.max(torch.abs(r)))
+                for g, r in zip(got, want)]
+        abs_err = max(float(torch.max(torch.abs(g.double() - r))) for g, r in zip(got, want))
+        require(max(errs) <= GRAD_RTOL, f"K5 gradients within {GRAD_RTOL} (got {max(errs):.3e})")
+        rows.append({"same": same, "n": n, "rel_errs": errs, "max_abs_err": abs_err})
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def phase_kernels_gram(device, gen: np.random.Generator) -> dict:
+    """K1 against ``ops.gram`` on the card, timed at the paths' shapes;
+    then K5's gradients and its forward + backward time."""
+    co2 = ops.co2_kernel()
+    f32 = lambda p: convert.params_from_numpy(p, device=device, dtype=torch.float32)
+    rbf_white = (ops.RBF() + ops.White(), f32(({"sigma": 1.0, "lengthscale": 2.0},
+                                               {"amplitude": 0.1})))
+    cases = [
+        ("rbf_white_same", *rbf_white, N_EXACT, None, D),
+        ("co2_no_white_cross", ops.Sum(children=co2.children[:4]),
+         f32(ops.co2_params_from_vector(torch.tensor(BOOK, dtype=torch.float64))[:4]),
+         N_BIG, BIN_CHUNK, 2),
+        ("matern52_same_ragged", ops.Matern(nu=2.5), f32({"sigma": 1.2, "lengthscale": 1.5}),
+         3001, None, D),
+    ]
+    checked = []
+    for name, kernel, params, n, m, d in cases:
+        x1 = torch.tensor(gen.uniform(-5, 5, (n, d)), dtype=torch.float32, device=device)
+        x2 = None if m is None else torch.tensor(gen.uniform(-5, 5, (m, d)),
+                                                 dtype=torch.float32, device=device)
+        before = kops.launch_counts["gram"]
+        got = kops.gram(kernel, params, x1, x2)
+        torch.cuda.synchronize()
+        require(kops.launch_counts["gram"] == before + 1, "the dispatcher launched K1")
+        err, scale = _gram_err(got, kops.gram_reference(kernel, params, x1, x2))
+        checked.append({"case": name, "n": n, "m": m or n, "d": d, "max_abs_err": err,
+                        "max_abs_plain": scale})
+    emit("kernels_gram_vs_plain", tolerance=f"max abs err <= {KERNEL_RTOL} x max|plain| and "
+         f"< {GRAM_ABS} x max(1, max|plain|)", cases=checked)
+
+    # the paths' shapes: the exact path's K (RBF(1, 2), d = 4) and the
+    # classifiers' cross-gram chunks (RBF(1, 1), d = 2)
+    timed = []
+    for n, m, d, lengthscale in ((N_EXACT, None, D, 2.0), (N_BIG, BIN_CHUNK, 2, 1.0),
+                                 (N_BIG, MC_CHUNK, 2, 1.0)):
+        kernel, params = ops.RBF(), f32({"sigma": 1.0, "lengthscale": lengthscale})
+        x1 = torch.tensor(gen.uniform(-3, 3, (n, d)), dtype=torch.float32, device=device)
+        x2 = None if m is None else torch.tensor(gen.uniform(-3, 3, (m, d)),
+                                                 dtype=torch.float32, device=device)
+        launch = _gram_launch(kernel, params, x1, x2)
+        err, scale = _gram_err(launch(), kops.gram_reference(kernel, params, x1, x2))
+        row = _in_turns(launch, lambda: kops.gram_reference(kernel, params, x1, x2), 20, 5)
+        row.update(kernel="gram", n=n, m=m or n, d=d, max_abs_err=err,
+                   store_floor_ms=n * (m or n) * 4 / 3.35e9,
+                   dispatcher_ms=_time_ms(lambda: kops.gram(kernel, params, x1, x2), 20))
+        timed.append(row)
+    emit("kernels_gram_timed", kernel="RBF(sigma=1)", plain="ops.gram in fp32",
+         store_floor="n m 4 bytes at 3.35 TB/s", rows=timed)
+
+    check = _gram_ad_check(device, gen)
+    # forward + params backward at the exact-training shape
+    x = torch.tensor(gen.uniform(-5, 5, (N_EXACT, D)), dtype=torch.float32, device=device)
+    w = torch.tensor(gen.standard_normal((N_EXACT, N_EXACT)), dtype=torch.float32,
+                     device=device)
+    params = {k: v.requires_grad_(True) for k, v in
+              f32({"sigma": 1.0, "lengthscale": 2.0}).items()}
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(torch.sum(w * fn(ops.RBF(), params, x)),
+                                           list(params.values()))
+
+    row = _in_turns(fwd_bwd(kops.gram_ad), fwd_bwd(kops.gram_reference), 10, 10)
+    row.update(kernel="gram_ad", n=N_EXACT, d=D, max_abs_err=check["max_abs_err"])
+    emit("gram_ad_check", tolerance=f"gradient max abs err <= {GRAD_RTOL} x max|float64 plain|",
+         kernel="RBF + Matern(5/2)", rows=check["rows"], timed_forward_backward=row)
+    return {"gram": timed[0], "gram_ad": row}
+
+
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.max(torch.abs(a.double() - b)) / (torch.max(torch.abs(b)) + 1e-12))
 
@@ -252,10 +452,13 @@ def phase_exact(device, gen: np.random.Generator) -> None:
 
     serve()  # warm-up: cuSOLVER/cuBLAS handles and workspaces
     torch.cuda.synchronize()
+    kops.reset_launch_counts()
     t0 = time.perf_counter()
     model, mean, std = serve()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    counts = dict(kops.launch_counts)
+    add_launches(counts)
 
     ref = GPRegressor(ops.RBF(), noise_variance=5e-4, device=device).fit(
         torch.from_numpy(x), torch.from_numpy(y))
@@ -268,9 +471,10 @@ def phase_exact(device, gen: np.random.Generator) -> None:
         / abs(float(ref.log_marginal_likelihood()))
     emit("exact", n=n, m=m, d=D, dtype="float32", seconds=seconds,
          rel_mean=rel_mean, rel_lml=rel_lml, rel_var=rel_var,
-         gates={"mean": GATE_MEAN, "lml": GATE_LML, "var": GATE_VAR})
+         gates={"mean": GATE_MEAN, "lml": GATE_LML, "var": GATE_VAR}, launches=counts)
     require(rel_mean <= GATE_MEAN and rel_lml <= GATE_LML and rel_var <= GATE_VAR,
             "exact path within the parity gates")
+    require(counts["gram"] > 0 and counts["gram_ad"] > 0, "the exact path launched K1 and K5")
 
 
 def _cg_problem(device, gen: np.random.Generator, n: int):
@@ -282,11 +486,10 @@ def _cg_problem(device, gen: np.random.Generator, n: int):
     return x, y, params
 
 
-def phase_matrix_free(device, gen: np.random.Generator) -> dict:
+def phase_matrix_free(device, gen: np.random.Generator) -> None:
     kernel = ops.RBF()
     x, y, params = _cg_problem(device, gen, N_BIG)
     tol, noise = 1e-3, 1e-2
-    totals = {name: 0 for name in kops.launch_counts}
     for m, expect in CG_RUNS:
         xs = x[:m] + 0.1
         torch.cuda.synchronize()
@@ -297,8 +500,7 @@ def phase_matrix_free(device, gen: np.random.Generator) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = dict(kops.launch_counts)
-        for name in totals:
-            totals[name] += counts[name]
+        add_launches(counts)
         require(counts[expect] > 0, f"{expect} launched in the m={m} run")
         # cg_solve stops at tol * max-column ||rhs||, rhs = [y | K_s]
         rhs = torch.cat([y[:, None], ops.gram(kernel, params, x, xs)], dim=1).double()
@@ -323,7 +525,6 @@ def phase_matrix_free(device, gen: np.random.Generator) -> dict:
     emit("matrix_free_parity", n=N_PARITY, m=8, mean_abs_err=mean_err, var_abs_err=var_err,
          gate=1e-2)
     require(mean_err < 1e-2 and var_err < 1e-2, "CG vs Cholesky parity at n=4096")
-    return totals
 
 
 def _centred(x1, x2):
@@ -460,6 +661,7 @@ def phase_train_exact(device, gen: np.random.Generator) -> None:
             torch.tensor(x, dtype=dtype, device=device),
             torch.tensor(y, dtype=dtype, device=device), noise_variance=5e-4))
         torch.cuda.synchronize()
+        kops.reset_launch_counts()
         t0 = time.perf_counter()
         model.fit(torch.tensor(x, dtype=dtype), torch.tensor(y, dtype=dtype),
                   **{**fit, **overrides})
@@ -472,6 +674,8 @@ def phase_train_exact(device, gen: np.random.Generator) -> None:
     for dtype in (torch.float32, torch.float64):
         train(dtype, max_iters=2)
     model, lml0, seconds = train(torch.float32)
+    counts = dict(kops.launch_counts)
+    add_launches(counts)
     ref, ref_lml0, ref_seconds = train(torch.float64)
     lml, ref_lml = float(model.lml_), float(ref.lml_)
     rel_lml = abs(lml - ref_lml) / abs(ref_lml)
@@ -481,13 +685,15 @@ def phase_train_exact(device, gen: np.random.Generator) -> None:
          lml_start=lml0, lml=lml, lml_float64=ref_lml, rel_lml=rel_lml,
          params={k: float(v) for k, v in model.params.items()},
          params_float64={k: float(v) for k, v in ref.params.items()},
-         rel_params=rel_params, gates={"lml": GATE_LML, "params": GATE_PARAMS})
+         rel_params=rel_params, gates={"lml": GATE_LML, "params": GATE_PARAMS},
+         launches=counts)
     require(np.isfinite(lml) and lml > lml0, "exact training raised the LML")
+    require(counts["gram"] > 0 and counts["gram_ad"] > 0, "exact training launched K1 and K5")
     require(rel_lml <= GATE_LML and rel_params <= GATE_PARAMS,
             "fp32 training within the gates of the float64 run")
 
 
-def phase_train_large(device, gen: np.random.Generator) -> dict:
+def phase_train_large(device, gen: np.random.Generator) -> None:
     kernel = ops.RBF()
     x, y, _ = _cg_problem(device, gen, N_BIG)
     p0 = convert.params_from_numpy({"sigma": 1.3, "lengthscale": 1.7}, device=device,
@@ -501,6 +707,7 @@ def phase_train_large(device, gen: np.random.Generator) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(kops.launch_counts)
+    add_launches(counts)
     trace = [float(t) for t in res.lml_trace]
     params = {k: float(v) for k, v in res.params.items()}
     emit("train_large", n=N_BIG, d=D, steps=TRAIN_STEPS, num_probes=TRAIN_PROBES,
@@ -548,7 +755,139 @@ def phase_train_large(device, gen: np.random.Generator) -> dict:
          cg_iters=list(small.cg_iters))
     require(max(grad_rel.values()) < 0.1, "surrogate gradient within 0.1 of the exact one")
     require(lml1 > lml0 + 1.0, "10 matrix-free steps raised the exact LML by more than 1")
-    return counts
+
+
+def _cls_data(gen: np.random.Generator, n: int, m: int):
+    """The JAX laplace benches' data: x uniform in [-3, 3]^2, binary labels
+    sign(sin(1.5 x0) - x1), three angle classes, m test points."""
+    x = gen.uniform(-3.0, 3.0, (n, 2))
+    y = np.where(np.sin(1.5 * x[:, 0]) - x[:, 1] > 0.0, 1.0, -1.0)
+    y3 = ((np.arctan2(x[:, 1], x[:, 0]) + np.pi) / (2 * np.pi) * C_CLS).astype(int) % C_CLS
+    return x, y, y3, gen.uniform(-3.0, 3.0, (m, 2))
+
+
+def _agreement(prob: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max |d prob|, label agreement) of a binary (m,) or multi-class
+    (C, m) probability against a reference."""
+    err = float(torch.max(torch.abs(prob.double() - ref.double())))
+    if prob.ndim == 1:
+        same = (prob >= 0.5) == (ref >= 0.5)
+    else:
+        same = torch.argmax(prob, dim=0) == torch.argmax(ref, dim=0)
+    return err, float(torch.mean(same.double()))
+
+
+def _gate(name: str, err: float, agree: float) -> None:
+    require(err <= GATE_PROB and agree >= GATE_LABELS,
+            f"{name}: max |d prob| {err:.3e} <= {GATE_PROB} and labels {agree:.4f} "
+            f">= {GATE_LABELS}")
+
+
+def phase_classify_dense(device, gen: np.random.Generator) -> None:
+    x, y, y3, xt = _cls_data(gen, N_CLS, M_CLS)
+
+    def run(kind, dtype, n=N_CLS):
+        model = (GPBinaryClassifier(ops.RBF(), device=device) if kind == "binary"
+                 else GPMulticlassClassifier(ops.RBF(), C_CLS, device=device))
+        labels = torch.tensor((y if kind == "binary" else y3)[:n])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(torch.tensor(x[:n], dtype=dtype), labels, solver="cholesky")
+        prob = model.predict_proba(torch.tensor(xt, dtype=dtype))
+        torch.cuda.synchronize()
+        return model, prob, time.perf_counter() - t0
+
+    for kind in ("binary", "multiclass"):
+        for dtype in (torch.float32, torch.float64):  # warm-up: solver handles
+            run(kind, dtype, n=512)
+        kops.reset_launch_counts()
+        model, prob, seconds = run(kind, torch.float32)
+        counts = dict(kops.launch_counts)
+        add_launches(counts)
+        ref, ref_prob, ref_seconds = run(kind, torch.float64)
+        err, agree = _agreement(prob, ref_prob)
+        emit("classify_dense", model=kind, n=N_CLS, m=M_CLS, d=2, kernel="RBF(1, 1)",
+             dtype="float32", seconds=seconds, seconds_float64=ref_seconds,
+             newton_iters=model.state.iters, newton_iters_float64=ref.state.iters,
+             converged=model.state.converged, max_abs_prob_err=err, label_agreement=agree,
+             gates={"prob": GATE_PROB, "labels": GATE_LABELS}, launches=counts)
+        require(bool(torch.isfinite(prob).all()) and model.state.converged,
+                f"{kind}: finite probabilities from a converged fit")
+        _gate(f"dense {kind} fp32 vs float64", err, agree)
+        require(counts["gram"] > 0 and counts["gram_ad"] > 0, f"dense {kind} launched K1")
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(kops.launch_counts)
+    add_launches(counts)
+    return out, time.perf_counter() - t0, counts
+
+
+def _large_pipeline(kind, params, x, y, xt, *, rank):
+    """The matrix-free fit and prediction: ((state, fit s, fit launches),
+    (prediction, predict s, predict launches))."""
+    kernel = ops.RBF()
+    if kind == "binary":
+        fit = _timed(lambda: gp.laplace_fit_cg(kernel, params, x, y, cg_tol=CLS_CG_TOL,
+                                               precond_rank=rank))
+        pred = _timed(lambda: gp.predict_binary_cg(kernel, params, fit[0], x, xt,
+                                                   cg_tol=CLS_CG_TOL, test_chunk=BIN_CHUNK))
+    else:
+        fit = _timed(lambda: gp.laplace_fit_multiclass_cg(kernel, params, x, y, C_CLS,
+                                                          cg_tol=CLS_CG_TOL,
+                                                          precond_rank=rank))
+        pred = _timed(lambda: gp.predict_multiclass_cg(kernel, params, fit[0], x, y, xt, C_CLS,
+                                                       test_chunk=MC_CHUNK))
+    return fit, pred
+
+
+def phase_classify_large(device, gen: np.random.Generator) -> None:
+    x_np, y_np, y3_np, xt_np = _cls_data(gen, N_BIG, M_CLS)
+    x, xt = (torch.tensor(a, dtype=torch.float32, device=device) for a in (x_np, xt_np))
+    labels = {"binary": torch.tensor(y_np, dtype=torch.float32, device=device),
+              "multiclass": torch.tensor(y3_np, device=device)}
+    params = convert.params_from_numpy({"sigma": 1.0, "lengthscale": 1.0}, device=device,
+                                       dtype=torch.float32)
+    for kind, rank in (("binary", BIN_RANK), ("multiclass", MC_RANK)):
+        (st, fit_s, fit_counts), (pred, pred_s, pred_counts) = _large_pipeline(
+            kind, params, x, labels[kind], xt, rank=rank)
+        emit("classify_large", model=kind, n=N_BIG, m=M_CLS, d=2, rank=rank, cg_tol=CLS_CG_TOL,
+             test_chunk=BIN_CHUNK if kind == "binary" else MC_CHUNK,
+             newton_iters=st.iters, inner_cg_iters=st.inner_iters, converged=st.converged,
+             error_trace=[float(e) for e in st.error_trace[:st.iters]],
+             fit_seconds=fit_s, predict_seconds=pred_s,
+             predict_cg_iters=pred_counts["gram_matvec_full"] if kind == "binary" else None,
+             fit_launches=fit_counts, predict_launches=pred_counts)
+        require(st.converged, f"the n = {N_BIG} {kind} Newton fit converged")
+        require(pred.prob.shape[-1] == M_CLS and bool(torch.isfinite(pred.prob).all()),
+                f"{kind}: finite probabilities of the expected shape")
+        require(fit_counts["gram_matvec_sym"] > 0, f"{kind} Newton launched K3")
+        require(pred_counts["gram"] > 0, f"{kind} prediction launched K1")
+        if kind == "binary":
+            require(bool(torch.isfinite(pred.var).all()), "finite latent variances")
+            require(pred_counts["gram_matvec_full"] > 0, "binary prediction launched K2")
+
+        # the same pipeline at n = 4096 against the dense path
+        (st_s, _, _), (pred_s_, _, _) = _large_pipeline(
+            kind, params, x[:N_CLS], labels[kind][:N_CLS], xt, rank=min(rank, N_CLS))
+        dense = (gp.fit_binary(ops.RBF(), params, x[:N_CLS], labels[kind][:N_CLS])
+                 if kind == "binary" else
+                 gp.fit_multiclass(ops.RBF(), params, x[:N_CLS], labels[kind][:N_CLS], C_CLS))
+        dpred = (gp.predict_binary(ops.RBF(), params, dense, x[:N_CLS], xt) if kind == "binary"
+                 else gp.predict_multiclass(ops.RBF(), params, dense, x[:N_CLS],
+                                            labels[kind][:N_CLS], xt, C_CLS))
+        err, agree = _agreement(pred_s_.prob, dpred.prob)
+        emit("classify_large_parity", model=kind, n=N_CLS, m=M_CLS, newton_iters=st_s.iters,
+             inner_cg_iters=st_s.inner_iters, newton_iters_dense=dense.iters,
+             max_abs_prob_err=err, label_agreement=agree,
+             gates={"prob": GATE_PROB, "labels": GATE_LABELS})
+        require(st_s.converged, f"the n = {N_CLS} {kind} matrix-free fit converged")
+        _gate(f"matrix-free {kind} vs dense at n = {N_CLS}", err, agree)
 
 
 def main() -> int:
@@ -557,14 +896,20 @@ def main() -> int:
     gen = np.random.default_rng(0)
     phase_build()
     timings = phase_kernels(device, gen)
+    timings.update(phase_kernels_gram(device, gen))
     phase_exact(device, gen)
-    launches = phase_matrix_free(device, gen)
+    phase_matrix_free(device, gen)
     timings["gram_matvec_bwd"] = phase_kernels_bwd(device, gen)
     phase_train_exact(device, gen)
-    launches["gram_matvec_bwd"] = phase_train_large(device, gen)["gram_matvec_bwd"]
+    phase_train_large(device, gen)
+    phase_classify_dense(device, gen)
+    phase_classify_large(device, gen)
+    emit("path_launches", launches=PATH_LAUNCHES)
+    for name in timings:
+        require(PATH_LAUNCHES[name] > 0, f"{name} launched on the main paths")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+         "launches": PATH_LAUNCHES[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
          "plain_ms": t["plain_ms"]}
         for name, t in timings.items()
     ]}), flush=True)

@@ -1,9 +1,9 @@
 """Frozen configuration dataclasses.
 
 Plain dataclasses carried over from the JAX package's ``config.py``
-(``SolveConfig``, ``GradientAscentConfig``) with the same field names and
-defaults, so a config built for one package means the same thing in the
-other. Only the configs of the ported paths are here.
+(``SolveConfig``, ``NewtonConfig``, ``GradientAscentConfig``) with the same
+field names and defaults, so a config built for one package means the same
+thing in the other. Only the configs of the ported paths are here.
 """
 
 from __future__ import annotations
@@ -28,6 +28,18 @@ class SolveConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class NewtonConfig:
+    """Laplace-approximation Newton iteration (``gp.classification``,
+    ``gp.multiclass``). The reference caps iterations at 10000 with tol 1e-4
+    (binary) [ref: GP_binary_classification.py:98,114]; true Newton needs
+    far fewer."""
+
+    tol: float = 1e-6
+    max_iters: int = 100
+    damping: float = 0.0  # the reference's damped multi-class trainer (unused by Newton)
+
+
+@dataclasses.dataclass(frozen=True)
 class GradientAscentConfig:
     """LML gradient-based hyperparameter optimisation (``opt.gradient``)."""
 
@@ -38,4 +50,5 @@ class GradientAscentConfig:
 
 
 DEFAULT_SOLVE = SolveConfig()
+DEFAULT_NEWTON = NewtonConfig()
 DEFAULT_GA = GradientAscentConfig()

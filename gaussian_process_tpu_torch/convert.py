@@ -1,4 +1,5 @@
-"""Carry kernels and hyperparameters between the JAX package and the port.
+"""Carry kernels, hyperparameters and fitted classifier states between the
+JAX package and the port.
 
 The functions are duck-typed and import nothing of JAX: a JAX kernel is
 recognised by its class name and dataclass fields, and a JAX array by the
@@ -13,6 +14,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from gaussian_process_tpu_torch.gp import classification as _cls
+from gaussian_process_tpu_torch.gp import multiclass as _mc
 from gaussian_process_tpu_torch.ops import kernels as _k
 
 _KERNELS = {
@@ -78,3 +81,40 @@ def params_to_numpy(params):
         return np.asarray(x)
 
     return _k.tree_map_params(leaf, params)
+
+
+def _state_from_numpy(cls, state, device, dtype):
+    """``cls`` (a NamedTuple of the port) from a state with the same field
+    names: arrays become tensors on ``device`` in ``dtype`` (None: each
+    array's own), iteration counts ints and ``converged`` a bool."""
+    fields = {}
+    for name in cls._fields:
+        value = np.array(getattr(state, name))  # a copy: the source may be read-only
+        if name in ("iters", "inner_iters"):
+            fields[name] = int(value)
+        elif name == "converged":
+            fields[name] = bool(value)
+        else:
+            t = torch.from_numpy(value)
+            fields[name] = t.to(device=device, dtype=dtype or t.dtype)
+    return cls(**fields)
+
+
+def binary_state_from_numpy(state, device: Union[str, torch.device, None] = None,
+                            dtype: Optional[torch.dtype] = None):
+    """The port's ``BinaryLaplaceState`` (or ``BinaryLaplaceCGState``, for a
+    state with a Nyström factor ``U``) from a fitted binary state of the JAX
+    package (f_mode, grad_at_mode, sqrt_w, chol_B or U, ...), so the port's
+    predict functions run on the JAX package's own mode."""
+    cls = _cls.BinaryLaplaceCGState if hasattr(state, "U") else _cls.BinaryLaplaceState
+    return _state_from_numpy(cls, state, device, dtype)
+
+
+def multiclass_state_from_numpy(state, device: Union[str, torch.device, None] = None,
+                                dtype: Optional[torch.dtype] = None):
+    """The port's ``MulticlassLaplaceState`` (or ``MulticlassLaplaceCGState``,
+    for a state with ``inner_iters``) from a fitted multi-class state of the
+    JAX package (f_mode, pi, ...)."""
+    cls = (_mc.MulticlassLaplaceCGState if hasattr(state, "inner_iters")
+           else _mc.MulticlassLaplaceState)
+    return _state_from_numpy(cls, state, device, dtype)

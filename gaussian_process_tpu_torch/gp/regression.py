@@ -9,9 +9,14 @@
     var*= diag(K_ss) - sum(v^2, 0)
     LML = -0.5 y^T a - sum(log diag L) - n/2 log(2 pi)
 
-Functions run on the device their tensors live on. The matrix-free path
-(:func:`posterior_cg`) streams kernel tiles through the hand-written CUDA
-matvec (``ops/cuda``) when its inputs are fp32 CUDA tensors.
+Functions run on the device their tensors live on. Every dense gram goes
+through ``ops.cuda.kernel_ops.gram``: the hand-written CUDA tile gram for
+fp32 CUDA inputs and a stationary kernel. (The JAX package keeps XLA's gram
+in its solve, where a Pallas call would break XLA's fusion; eager PyTorch
+has no fusion to break, and its plain gram is several full-matrix passes.)
+The matrix-free path (:func:`posterior_cg`) streams kernel tiles through the
+hand-written CUDA matvec (``ops/cuda``) when its inputs are fp32 CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -78,10 +83,10 @@ def posterior(
     cfg = _solve_cfg(cfg)
     if noise_variance is None:
         noise_variance = cfg.noise_variance
-    K = _k.gram(kernel, params, x_train, method=dist_method)
+    K = _kops.gram(kernel, params, x_train, method=dist_method)
     dtype, work = K.dtype, _chol.solve_dtype(K.dtype)
     K = K.to(work)
-    K_s = _k.gram(kernel, params, x_train, x_test, method=dist_method).to(work)
+    K_s = _kops.gram(kernel, params, x_train, x_test, method=dist_method).to(work)
     kss_diag = _k.gram_diag(kernel, params, x_test).to(work)
     res = _chol.safe_cholesky(
         K,
@@ -132,7 +137,7 @@ def log_marginal_likelihood(
     cfg = _solve_cfg(cfg)
     if noise_variance is None:
         noise_variance = cfg.noise_variance
-    K = _k.gram(kernel, params, x_train, method=dist_method)
+    K = _kops.gram(kernel, params, x_train, method=dist_method)
     dtype, work = K.dtype, _chol.solve_dtype(K.dtype)
     y_train = y_train.to(work)
     L = _chol.safe_cholesky(
@@ -164,7 +169,7 @@ def sample_prior(
     dist_method: str = "dot",
 ) -> torch.Tensor:
     """Draw ``num_functions`` GP prior paths at ``x``: mu + L N(0, I)."""
-    K = _k.gram(kernel, params, x, method=dist_method)
+    K = _kops.gram(kernel, params, x, method=dist_method)
     L = _chol.safe_cholesky(K, initial_jitter=jitter).factor
     eps = _normal((x.shape[0], num_functions), generator, K)
     return mean + L @ eps
@@ -186,11 +191,33 @@ def sample_posterior(
     v^T v) applied to standard normals, plus the posterior mean."""
     if jitter is None:
         jitter = _solve_cfg(cfg).sampling_jitter
-    K_ss = _k.gram(kernel, params, x_test, method=dist_method)
+    K_ss = _kops.gram(kernel, params, x_test, method=dist_method)
     cov = K_ss - post.v.T @ post.v
     L = _chol.safe_cholesky(cov, initial_jitter=jitter).factor
     eps = _normal((x_test.shape[0], num_functions), generator, K_ss)
     return post.mean[:, None] + L @ eps
+
+
+def kernel_operator(kernel: _k.Kernel, params: _k.Params, x: torch.Tensor,
+                    use_kernel: Optional[bool]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """v -> K(x, x) v, White included, for v (n,) or (n, r): the matvec of
+    every matrix-free path. ``use_kernel`` (the JAX package's
+    ``use_pallas``): one ``ops.cuda.gram_matvec`` sweep (K3 for thin v, K2
+    for wide v); None means ``ops.cuda.kernel_ops.use_matvec_kernel``.
+    Otherwise a dense K, which a CUDA tensor may hold only up to
+    ``DENSE_CUDA_MAX_N`` points."""
+    if use_kernel is None:
+        use_kernel = _kops.use_matvec_kernel(kernel, x)
+    if use_kernel:
+        return lambda v: _kops.gram_matvec(kernel, params, x, None, v)
+    if x.is_cuda and x.shape[0] > DENSE_CUDA_MAX_N:
+        raise ValueError(
+            f"a matrix-free solve at n = {x.shape[0]} on the GPU needs the CUDA matvec, "
+            f"which takes float32 inputs and a stationary kernel only (got {x.dtype}, "
+            f"{type(kernel).__name__}); a dense K is allowed up to n = {DENSE_CUDA_MAX_N}"
+        )
+    K = _kops.gram(kernel, params, x)
+    return lambda v: K @ v
 
 
 class CGPosterior(NamedTuple):
@@ -254,24 +281,8 @@ def posterior_cg(
     shift = noise_variance + (white_var if white_var is not None else 0.0)
 
     if use_kernel is None:
-        use_kernel = (
-            x_train.is_cuda
-            and x_train.dtype == torch.float32
-            and _k.is_stationary(kernel)
-        )
-    if use_kernel:
-        matvec = lambda v: _kops.gram_matvec(k_nw, p_nw, x_train, None, v)
-    else:
-        if x_train.is_cuda and n > DENSE_CUDA_MAX_N:
-            raise ValueError(
-                f"posterior_cg at n = {n} on the GPU needs the matrix-free CUDA "
-                "matvec, which takes float32 inputs and a stationary kernel only "
-                f"(got {x_train.dtype}, {type(kernel).__name__}); without it K "
-                f"is built densely, which is allowed up to n = {DENSE_CUDA_MAX_N}"
-            )
-        K = _k.gram(k_nw, p_nw, x_train)
-        matvec = lambda v: K @ v
-
+        use_kernel = _kops.use_matvec_kernel(kernel, x_train)
+    matvec = kernel_operator(k_nw, p_nw, x_train, use_kernel)
     noisy_mv = lambda v: matvec(v) + shift * v
     if preconditioner == "auto":
         preconditioner = "nystrom" if n > 4096 else "jacobi"
@@ -296,7 +307,7 @@ def posterior_cg(
     worst_res = torch.zeros((), dtype=x_train.dtype, device=x_train.device)
     alpha = None
     for c0 in range(0, m, chunk):
-        Ks = _k.gram(k_nw, p_nw, x_train, x_test[c0 : c0 + chunk])  # (n, chunk)
+        Ks = _kops.gram(k_nw, p_nw, x_train, x_test[c0 : c0 + chunk])  # (n, chunk)
         rhs = torch.cat([y_train[:, None], Ks], dim=1) if c0 == 0 else Ks
         state = _cg.cg_solve(
             noisy_mv, rhs, tol=tol, max_iters=max_iters, **precond_kwargs

@@ -1,5 +1,5 @@
-"""Estimator facade: ``GPRegressor`` (torch counterpart of the regression
-estimator in ``models/estimators.py``).
+"""Estimator facade: ``GPRegressor``, ``GPBinaryClassifier`` and
+``GPMulticlassClassifier`` (torch counterparts of ``models/estimators.py``).
 
 ``fit`` stores tensors on the estimator's device; every compute path
 delegates to the functions in ``gp``.
@@ -12,6 +12,8 @@ from typing import Optional, Union
 import torch
 
 from gaussian_process_tpu_torch import convert as _convert
+from gaussian_process_tpu_torch.gp import classification as _cls
+from gaussian_process_tpu_torch.gp import multiclass as _mc
 from gaussian_process_tpu_torch.gp import regression as _reg
 from gaussian_process_tpu_torch.ops import kernels as _k
 from gaussian_process_tpu_torch.opt import gradient as _grad
@@ -163,3 +165,162 @@ class GPRegressor:
     def log_marginal_likelihood(self) -> torch.Tensor:
         self._check_fitted()
         return self.lml_
+
+
+# the training-set size above which solver="auto" picks the matrix-free path
+AUTO_CG_N = 32768
+
+
+class _Classifier:
+    """What both classifiers share: the device, the fit's solver choice and
+    the accuracy score."""
+
+    def __init__(self, kernel, params, dist_method, device):
+        self.kernel = kernel
+        self.params = kernel.init_params() if params is None else params
+        self.dist_method = dist_method
+        self.device = None if device is None else torch.device(device)
+        self.x_train = None
+        self.state = None
+        self._solver = None
+
+    def _to_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def _store(self, x, solver: str) -> str:
+        """Keep the training points and their params on the device; the
+        solver "auto" resolves to "cg" above ``AUTO_CG_N`` points."""
+        self.x_train = self._to_device(x)
+        self.device = self.x_train.device
+        self.params = _convert.params_from_numpy(self.params, device=self.device)
+        if solver == "auto":
+            solver = "cg" if self.x_train.shape[0] > AUTO_CG_N else "cholesky"
+        if solver not in ("cg", "cholesky"):
+            raise ValueError(f"unknown solver {solver!r}")
+        self._solver = solver
+        return solver
+
+    def _check_fitted(self):
+        if self.state is None:
+            raise RuntimeError("call fit() first")
+
+    def score(self, x_test, y_test) -> float:
+        """Accuracy: the reference's printed metric
+        [ref: GP_binary_classification.py:241, GP_multi_classification.py:253]."""
+        labels = self.predict(x_test)
+        y_test = torch.as_tensor(y_test, device=labels.device)
+        return float(torch.mean((labels == y_test).double()))
+
+
+class GPBinaryClassifier(_Classifier):
+    """Laplace-approximation binary GP classification (labels in {-1, +1}),
+    true Newton at the current iterate (the reference freezes W and the
+    gradient at the prior sample, quirk Q2
+    [ref: GP_binary_classification.py:104-105]).
+
+    ``device``: where the training data, the params and the computation
+    live (None: the device of the data given to ``fit``).
+    """
+
+    def __init__(
+        self,
+        kernel: _k.Kernel,
+        params: Optional[_k.Params] = None,
+        *,
+        dist_method: str = "dot",
+        device: Union[str, torch.device, None] = None,
+    ):
+        super().__init__(kernel, params, dist_method, device)
+
+    def fit(self, x, y, *, tol=None, max_iters: int = 100, solver: str = "auto",
+            precond_rank: int = 512) -> "GPBinaryClassifier":
+        """``solver``: "cholesky" (dense Newton), "cg" (matrix-free Newton,
+        ``gp.laplace_fit_cg``), or "auto" (cg above n = 32768)."""
+        solver = self._store(x, solver)
+        y = self._to_device(y)
+        if solver == "cg":
+            self.state = _cls.laplace_fit_cg(
+                self.kernel, self.params, self.x_train, y, tol=tol, max_iters=max_iters,
+                precond_rank=precond_rank,
+            )
+        else:
+            self.state = _cls.fit_binary(
+                self.kernel, self.params, self.x_train, y, tol=tol, max_iters=max_iters,
+                dist_method=self.dist_method,
+            )
+        return self
+
+    def _predict_full(self, x_test) -> _cls.BinaryPrediction:
+        self._check_fitted()
+        x_test = self._to_device(x_test)
+        if self._solver == "cg":
+            return _cls.predict_binary_cg(self.kernel, self.params, self.state, self.x_train,
+                                          x_test)
+        return _cls.predict_binary(self.kernel, self.params, self.state, self.x_train, x_test,
+                                   dist_method=self.dist_method)
+
+    def predict(self, x_test) -> torch.Tensor:
+        """Labels in {-1, +1} [ref: GP_binary_classification.py:35-45]."""
+        return self._predict_full(x_test).label
+
+    def predict_proba(self, x_test, *, averaged: bool = False) -> torch.Tensor:
+        p = self._predict_full(x_test)
+        return p.prob_averaged if averaged else p.prob
+
+
+class GPMulticlassClassifier(_Classifier):
+    """Laplace multi-class GP classification (R&W Alg. 3.3, per-class n x n
+    factorizations batched over classes: the reference's disabled trainer
+    done right [ref: GP_multi_classification.py:66-126])."""
+
+    def __init__(
+        self,
+        kernel: _k.Kernel,
+        num_classes: int,
+        params: Optional[_k.Params] = None,
+        *,
+        dist_method: str = "dot",
+        device: Union[str, torch.device, None] = None,
+    ):
+        super().__init__(kernel, params, dist_method, device)
+        self.num_classes = int(num_classes)
+        self.y_labels = None
+
+    def fit(self, x, y_labels, *, tol=None, max_iters: int = 100, solver: str = "auto",
+            precond_rank: int = 512) -> "GPMulticlassClassifier":
+        """``solver``: "cholesky" (per-class dense factorizations), "cg"
+        (matrix-free stacked-system Newton, ``gp.laplace_fit_multiclass_cg``),
+        or "auto" (cg above n = 32768)."""
+        solver = self._store(x, solver)
+        self.y_labels = self._to_device(y_labels)
+        if solver == "cg":
+            self.state = _mc.laplace_fit_multiclass_cg(
+                self.kernel, self.params, self.x_train, self.y_labels, self.num_classes,
+                tol=tol, max_iters=max_iters, precond_rank=precond_rank,
+            )
+        else:
+            self.state = _mc.fit_multiclass(
+                self.kernel, self.params, self.x_train, self.y_labels, self.num_classes,
+                tol=tol, max_iters=max_iters, dist_method=self.dist_method,
+            )
+        return self
+
+    def _predict_full(self, x_test) -> _mc.MulticlassPrediction:
+        self._check_fitted()
+        x_test = self._to_device(x_test)
+        if self._solver == "cg":
+            return _mc.predict_multiclass_cg(self.kernel, self.params, self.state,
+                                             self.x_train, self.y_labels, x_test,
+                                             self.num_classes)
+        return _mc.predict_multiclass(self.kernel, self.params, self.state, self.x_train,
+                                      self.y_labels, x_test, self.num_classes,
+                                      dist_method=self.dist_method)
+
+    def predict(self, x_test) -> torch.Tensor:
+        """Integer class labels, the argmax over latent class means
+        [ref: GP_multi_classification.py:179-197]."""
+        return self._predict_full(x_test).label
+
+    def predict_proba(self, x_test) -> torch.Tensor:
+        """(num_classes, m) softmax class probabilities."""
+        return self._predict_full(x_test).prob

@@ -1,5 +1,5 @@
 """Kernel-matrix primitives: distances, the kernel algebra, and the CUDA
-matvec (``ops.cuda``)."""
+tile gram and matvec (``ops.cuda``)."""
 
 from gaussian_process_tpu_torch.ops.distance import sqdist, absdist
 from gaussian_process_tpu_torch.ops.kernels import (

@@ -1,17 +1,23 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), built at first use."""
 
 from gaussian_process_tpu_torch.ops.cuda.kernel_ops import (
+    gram,
+    gram_ad,
     gram_matvec,
     gram_matvec_reference,
     gram_matvec_vjp_reference,
+    gram_reference,
     launch_counts,
     reset_launch_counts,
 )
 
 __all__ = [
+    "gram",
+    "gram_ad",
     "gram_matvec",
     "gram_matvec_reference",
     "gram_matvec_vjp_reference",
+    "gram_reference",
     "launch_counts",
     "reset_launch_counts",
 ]

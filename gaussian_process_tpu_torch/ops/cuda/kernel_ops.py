@@ -1,10 +1,11 @@
-"""Matrix-free kernel matvec K(x1, x2) @ V on the GPU, differentiable, with
-its plain versions.
+"""The dense kernel matrix K(x1, x2) and the matrix-free matvec
+K(x1, x2) @ V on the GPU, differentiable, with their plain versions.
 
-Torch counterpart of the JAX package's ``ops/pallas/kernel_ops.py:gram_matvec``
-and its custom VJP. Three hand-written CUDA kernels do the work on a CUDA
-tensor:
+Torch counterpart of the JAX package's ``ops/pallas/kernel_ops.py``
+(``gram``, ``gram_ad``, ``gram_matvec`` and its custom VJP). Four
+hand-written CUDA kernels do the work on a CUDA tensor:
 
+- :func:`gram_cuda` (the tile gram, ``csrc/gram.cu``, replaces ``gram``);
 - :func:`matvec_full_cuda` (full sweep, ``csrc/gram_matvec.cu``, replaces
   ``_matvec_fwd_impl``);
 - :func:`matvec_sym_cuda` (same-set upper-triangle sweep, same file,
@@ -12,13 +13,16 @@ tensor:
 - :func:`matvec_bwd_cuda` (the backward sweep, ``csrc/gram_matvec_bwd.cu``,
   replaces ``_matvec_bwd_sweep``).
 
-:func:`gram_matvec` keeps the JAX package's dispatch rule, so both packages
-pick the same sweep for the same inputs, and runs through
-``_GramMatvecFn``, whose backward gives the gradients in the coefficient
-vector, x1, x2 and V. On a CPU tensor the Function runs the plain versions
-(:func:`gram_matvec_reference`, :func:`gram_matvec_vjp_reference`); on a
-CUDA tensor it launches a kernel or raises. There is no fallback from one to
-the other.
+:func:`gram` is the port's one dense-gram dispatcher: fp32 CUDA inputs and
+a stationary kernel take :func:`gram_ad` (``_GramFn``: the tile gram
+forward, the plain gram's VJP backward, as the JAX ``gram_ad``), anything
+else the plain ``ops.gram``. :func:`gram_matvec` keeps the JAX package's
+sweep rule, so both packages pick the same sweep for the same inputs, and
+runs through ``_GramMatvecFn``, whose backward gives the gradients in the
+coefficient vector, x1, x2 and V. On a CPU tensor the Functions run the
+plain versions (:func:`gram_reference`, :func:`gram_matvec_reference`,
+:func:`gram_matvec_vjp_reference`); on a CUDA tensor they launch a kernel or
+raise. There is no fallback from one to the other.
 
 The kernel tree reaches the GPU as a postfix program: each instruction is
 (opcode, offset into a coefficient vector). Leaves push a kernel value
@@ -39,6 +43,7 @@ the leaves' closed forms in their coefficients.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -68,8 +73,11 @@ BWD_ROWS = 64  # x1 rows per block of the backward sweep (its partials' count)
 # largest dynamic shared memory a block may use on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 
-# launches of each kernel, counted where the wrapper launches it
-launch_counts = {"gram_matvec_full": 0, "gram_matvec_sym": 0, "gram_matvec_bwd": 0}
+# launches of each kernel, counted where the wrapper launches it: "gram"
+# counts every launch of the tile gram, "gram_ad" those made by its
+# differentiable wrapper
+launch_counts = {"gram": 0, "gram_ad": 0, "gram_matvec_full": 0, "gram_matvec_sym": 0,
+                 "gram_matvec_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -202,7 +210,43 @@ def eval_program(program, coef: torch.Tensor, sq: torch.Tensor,
     return stack[0]
 
 
+def gram_program(kernel: _k.Kernel, params: _k.Params, same: bool):
+    """The tile gram's program: ``(program, coefs, white_idx)``. A same-set
+    gram splits the top-level White terms off and appends their variance to
+    the coefficients at ``white_idx`` (the kernel adds it on the global
+    diagonal, as the JAX ``gram``'s index mask does); otherwise
+    ``white_idx`` is -1 and a White leaf encodes as zero."""
+    white = None
+    if same:
+        kernel, params, white = _k.split_white(kernel, params)
+    program, coefs = ([(OP_ZERO, 0)], []) if kernel is None else encode(kernel, params)
+    if white is None:
+        return program, coefs, -1
+    return program, [*coefs, white], len(coefs)
+
+
+def nested_white(kernel: _k.Kernel) -> bool:
+    """True if a White leaf sits anywhere but as a term of the top-level sum
+    (the tile gram, like the JAX one, evaluates such a leaf as zero)."""
+    terms = kernel.children if isinstance(kernel, _k.Sum) else (kernel,)
+
+    def has_white(k):
+        if isinstance(k, _k.White):
+            return True
+        if isinstance(k, (_k.Sum, _k.Product)):
+            return any(has_white(c) for c in k.children)
+        return isinstance(k, _k.Scaled) and has_white(k.base)
+
+    return any(has_white(t) for t in terms if not isinstance(t, _k.White))
+
+
 # ------------------------------------------------------------ plain version
+
+
+def gram_reference(kernel: _k.Kernel, params: _k.Params, x1: torch.Tensor,
+                   x2: Optional[torch.Tensor] = None, *, method: str = "dot") -> torch.Tensor:
+    """The tile gram's plain version: ``ops.gram``."""
+    return _k.gram(kernel, params, x1, x2, method=method)
 
 
 def gram_matvec_reference(
@@ -411,6 +455,15 @@ def _prog_tensor(program, max_instr: int, max_coef: int, n_coef: int, device) ->
         )
     if _stack_depth(program) > MAX_STACK:
         raise ValueError("kernel tree nested too deeply for the CUDA kernel")
+    return _program_on_device(tuple(program), torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _program_on_device(program: tuple, device: torch.device) -> torch.Tensor:
+    """The program as an int32 device tensor, copied once per tree and
+    device: a copy from pageable host memory waits for the stream, which
+    would cost a sub-millisecond kernel (the tile gram) a round trip per
+    launch. The kernels only read it."""
     return torch.tensor(program, dtype=torch.int32).reshape(-1).to(device)
 
 
@@ -428,6 +481,42 @@ def _forward_args(program, coef, x, v, symmetric: bool):
         raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
     prog = _prog_tensor(program, MAX_INSTR, MAX_COEF, coef.numel(), x.device)
     return lib, prog
+
+
+def gram_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: Optional[torch.Tensor],
+              *, white_idx: int, need_l2: bool) -> torch.Tensor:
+    """K(x1, x2) (n, m) by the tile-gram CUDA kernel, for the postfix
+    ``program`` over ``coef`` (:func:`gram_program`). Takes centred,
+    contiguous fp32 CUDA tensors x1c (n, d) and x2c (m, d); ``x2c=None`` is
+    the same set, where ``coef[white_idx]`` (if ``white_idx >= 0``) goes on
+    the diagonal. Raises on anything else."""
+    from gaussian_process_tpu_torch.ops.cuda import _build
+
+    same = x2c is None
+    x2c = x1c if same else x2c
+    _check_cuda_f32(coef=coef, x1=x1c, x2=x2c)
+    n, d = x1c.shape
+    m = x2c.shape[0]
+    if x2c.shape[1] != d:
+        raise ValueError(f"x1 has {d} columns, x2 {x2c.shape[1]}")
+    if white_idx >= 0 and not same:
+        raise ValueError("White's diagonal belongs to a same-set gram only")
+    lib = _build.load()
+    smem = lib.gm_gram_smem_bytes(int(d))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
+    prog = _prog_tensor(program, MAX_INSTR, MAX_COEF, coef.numel(), x1c.device)
+    out = torch.empty((n, m), dtype=torch.float32, device=x1c.device)
+    with torch.cuda.device(x1c.device):
+        err = lib.gm_gram(
+            x1c.data_ptr(), x2c.data_ptr(), out.data_ptr(), prog.data_ptr(), len(program),
+            coef.data_ptr(), coef.numel(), int(white_idx), n, m, d, int(need_l2),
+            _stream(x1c.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"gm_gram launch failed: cudaError {err}")
+    launch_counts["gram"] += 1
+    return out
 
 
 def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.Tensor,
@@ -521,6 +610,82 @@ def matvec_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.T
 # ---------------------------------------------------------------- autograd
 
 
+class _GramSpec(NamedTuple):
+    """What ``_GramFn`` needs besides its tensors."""
+
+    kernel: _k.Kernel
+    structure: _k.Params  # the params tree the leaves are unflattened into
+    method: str  # the plain gram's distance method
+
+
+def _gram_forward(spec: _GramSpec, params, x1, x2) -> torch.Tensor:
+    """``_GramFn``'s forward: the tile gram on a CUDA tensor (centred on
+    mean(x1)), ``ops.gram`` on a CPU tensor."""
+    if not x1.is_cuda:
+        return gram_reference(spec.kernel, params, x1, x2, method=spec.method)
+    program, coefs, white_idx = gram_program(spec.kernel, params, x2 is None)
+    coef = coef_vector(coefs, dtype=torch.float32, device=x1.device)
+    center = torch.mean(x1, dim=0, keepdim=True)
+    x1c = (x1 - center).contiguous()
+    x2c = None if x2 is None else (x2 - center).contiguous()
+    out = gram_cuda(program, coef, x1c, x2c, white_idx=white_idx,
+                    need_l2=_k.needs_l2(spec.kernel))
+    launch_counts["gram_ad"] += 1
+    return out
+
+
+class _GramFn(torch.autograd.Function):
+    """K(x1, x2) (``x2=None``: the same set), differentiable in x1, x2 and
+    the params leaves: the JAX package's ``gram_ad``. The forward launches
+    the tile gram on a CUDA tensor and is ``ops.gram`` on a CPU tensor; the
+    backward is the VJP of the plain ``ops.gram`` expression, recomputed
+    under ``torch.enable_grad()``, as the JAX ``gram_ad``'s backward is
+    ``jax.vjp`` of the XLA gram. It runs only when something is
+    differentiated; a same-set call has no x2 to differentiate."""
+
+    @staticmethod
+    def forward(ctx, spec: _GramSpec, x1, x2, *leaves):
+        ctx.spec = spec
+        ctx.save_for_backward(x1, x2, *leaves)
+        return _gram_forward(spec, _k.tree_unflatten(spec.structure, leaves), x1, x2)
+
+    @staticmethod
+    def backward(ctx, ct):
+        spec = ctx.spec
+        saved = ctx.saved_tensors
+        want = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(w)
+                      for t, w in zip(saved, want)]
+            K = gram_reference(spec.kernel, _k.tree_unflatten(spec.structure, inputs[2:]),
+                               inputs[0], inputs[1], method=spec.method)
+            wanted = [t for t, w in zip(inputs, want) if w]
+            grads = iter(torch.autograd.grad(K, wanted, ct, allow_unused=True))
+        out = []
+        for t, w in zip(inputs, want):
+            g = next(grads) if w else None
+            out.append(torch.zeros_like(t) if w and g is None else g)
+        return (None, *out)
+
+
+def gram_ad(kernel: _k.Kernel, params: _k.Params, x1: torch.Tensor,
+            x2: Optional[torch.Tensor] = None, *, method: str = "dot") -> torch.Tensor:
+    """Differentiable dense gram through the tile gram (``_GramFn``): the
+    JAX package's ``gram_ad``. Stationary kernels; on a CUDA tensor fp32
+    only (it raises otherwise). ``method`` is the plain gram's (the CPU
+    forward and every backward); the tile gram forms the squared distance
+    from direct differences on centred inputs."""
+    if not _k.is_stationary(kernel):
+        raise ValueError("gram_ad supports stationary kernels only")
+    x1 = _k._dist._as_2d(x1)
+    x2 = None if x2 is None else _k._dist._as_2d(x2)
+    structure = params
+    leaves = [leaf if isinstance(leaf, torch.Tensor)
+              else torch.tensor(leaf, dtype=torch.float64, device=x1.device)
+              for leaf in _k.tree_leaves(params)]
+    return _GramFn.apply(_GramSpec(kernel, structure, method), x1, x2, *leaves)
+
+
 class _Spec(NamedTuple):
     """What ``_GramMatvecFn`` needs besides its tensors."""
 
@@ -585,6 +750,31 @@ class _GramMatvecFn(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------- dispatch
+
+
+def use_matvec_kernel(kernel: _k.Kernel, x: torch.Tensor) -> bool:
+    """The matrix-free rule: the CUDA sweeps for fp32 CUDA inputs and a
+    stationary kernel (the JAX package's ``use_pallas``); the default
+    ``use_kernel`` of every matrix-free path."""
+    return x.is_cuda and x.dtype == torch.float32 and _k.is_stationary(kernel)
+
+
+def use_gram_kernel(kernel: _k.Kernel, x: torch.Tensor) -> bool:
+    """The dense-gram rule: :func:`use_matvec_kernel`, unless a White leaf
+    sits below the top-level sum, which the tile gram cannot place."""
+    return use_matvec_kernel(kernel, x) and not nested_white(kernel)
+
+
+def gram(kernel: _k.Kernel, params: _k.Params, x1: torch.Tensor,
+         x2: Optional[torch.Tensor] = None, *, method: str = "dot") -> torch.Tensor:
+    """Dense K(x1, x2), every dense gram of the port: :func:`gram_ad` (the
+    tile gram forward) where :func:`use_gram_kernel` holds, else the plain
+    ``ops.gram``. The rule is decided before any launch; a tile gram that
+    fails to build or launch raises."""
+    x1 = torch.as_tensor(x1)
+    if use_gram_kernel(kernel, x1):
+        return gram_ad(kernel, params, x1, x2, method=method)
+    return gram_reference(kernel, params, x1, x2, method=method)
 
 
 def use_symmetric(n_rows: int, r: int) -> bool:

@@ -34,12 +34,6 @@ from gaussian_process_tpu_torch.ops.cuda import kernel_ops as _kops
 from gaussian_process_tpu_torch.opt import gradient as _grad
 
 
-def _default_use_kernel(kernel, x: torch.Tensor) -> bool:
-    """The CUDA matvec for fp32 CUDA inputs and a stationary kernel (as
-    ``gp.posterior_cg`` decides)."""
-    return x.is_cuda and x.dtype == torch.float32 and _k.is_stationary(kernel)
-
-
 def _make_matvec(kernel, x, noise_variance, use_kernel):
     """(params, v) -> (K(params) + shift) @ v with White folded into shift.
 
@@ -53,7 +47,7 @@ def _make_matvec(kernel, x, noise_variance, use_kernel):
         if use_kernel:
             out = _kops.gram_matvec(k_nw, p_nw, x, None, vv)
         else:
-            out = _k.gram(k_nw, p_nw, x) @ vv
+            out = _kops.gram(k_nw, p_nw, x) @ vv
         out = out + shift * vv
         return out[:, 0] if v.ndim == 1 else out
 
@@ -72,7 +66,7 @@ def _surrogate(kernel, params, x, y, generator, *, noise_variance, num_probes, c
                cg_max_iters, precond_rank, use_kernel):
     """``lml_surrogate``'s value and the CG state of its solve."""
     if use_kernel is None:
-        use_kernel = _default_use_kernel(kernel, x)
+        use_kernel = _kops.use_matvec_kernel(kernel, x)
     matvec = _make_matvec(kernel, x, noise_variance, use_kernel)
     n = y.shape[0]
 
@@ -212,7 +206,7 @@ def slq_logdet(
     values honest in fp32.
     """
     if use_kernel is None:
-        use_kernel = _default_use_kernel(kernel, x)
+        use_kernel = _kops.use_matvec_kernel(kernel, x)
     matvec = _make_matvec(kernel, x, noise_variance, use_kernel)
     return slq_logdet_matvec(
         lambda v: matvec(params, v), x.shape[0], generator, num_probes=num_probes,
@@ -282,7 +276,7 @@ def lml_estimate(
     Nyström-preconditioned CG solve) + the SLQ logdet. The matrix-free
     stand-in for ``gp.log_marginal_likelihood`` when K cannot be built."""
     if use_kernel is None:
-        use_kernel = _default_use_kernel(kernel, x)
+        use_kernel = _kops.use_matvec_kernel(kernel, x)
     matvec = _make_matvec(kernel, x, noise_variance, use_kernel)
     n = y.shape[0]
     k_nw, p_nw, white = _k.split_white(kernel, params)

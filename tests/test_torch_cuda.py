@@ -176,3 +176,101 @@ def test_backward_sweep_refuses_a_large_tree(cuda):
     v = torch.zeros((64, 1), dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="too large"):
         kops.matvec_bwd_cuda(program, coef, x, x, v, v, need_l2=True, want_dx=False)
+
+
+GRAM_FAMILIES = {
+    **BWD_FAMILIES,
+    "matern32": (ops.Matern(nu=1.5), {"sigma": 0.8, "lengthscale": 1.1}),
+    "matern52": (ops.Matern(nu=2.5), {"sigma": 1.2, "lengthscale": 1.5}),
+    "rbf_white": (ops.RBF() + ops.White(), ({"sigma": 1.0, "lengthscale": 1.5},
+                                            {"amplitude": 0.3})),
+    "co2": (ops.co2_kernel(), ops.co2_params_from_vector(
+        torch.tensor([66, 67, 2.4, 90, 1.3, 0.66, 1.2, 0.78, 0.18, 1.6, 0.19],
+                     dtype=torch.float64))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAM_FAMILIES))
+@pytest.mark.parametrize("n,m,d", [(193, None, 3), (300, 129, 2), (1000, 777, 5),
+                                   (64, 128, 1), (150, 70, 11)])  # d > 8: the generic path
+def test_tile_gram_matches_plain_on_card(cuda, name, n, m, d):
+    """K1 on ragged shapes, same- and cross-set, every leaf family: within
+    2e-4 x max |plain| of the plain gram on the same points in float64, and
+    within 1e-4 x max(1, max |plain|) absolute (the JAX package's 1e-4
+    gate, set on entries of at most 1; co2's book amplitude makes entries
+    near 4.4e3, where fp32's own spacing is 4.9e-4). Float64, because the
+    fp32 plain gram forms the squared distance by the norm expansion: near
+    coincident points its cancellation, through sqrt, costs a family linear
+    in l2 (Matern 1/2, the periodic ones) up to 1e-3, where K1's direct
+    differences do not."""
+    rng = np.random.default_rng(n + d)
+    kernel, params = GRAM_FAMILIES[name]
+    params = _params(params, cuda)
+    x1 = torch.tensor(rng.uniform(-5, 5, (n, d)), dtype=torch.float32, device=cuda)
+    x2 = None if m is None else torch.tensor(rng.uniform(-5, 5, (m, d)),
+                                             dtype=torch.float32, device=cuda)
+    before = kops.launch_counts["gram"]
+    got = kops.gram(kernel, params, x1, x2)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram"] == before + 1
+    want = kops.gram_reference(kernel, kops._k.tree_map_params(lambda a: a.double(), params),
+                               x1.double(), None if x2 is None else x2.double())
+    assert got.shape == want.shape == (n, n if m is None else m)
+    err, scale = float((got.double() - want).abs().max()), float(want.abs().max())
+    assert err <= 2e-4 * scale and err < 1e-4 * max(1.0, scale)
+
+
+@pytest.mark.parametrize("same", [True, False])
+def test_gram_ad_gradient_on_card(cuda, same):
+    """K5: the gradient of sum(W * gram_ad) in the params and x through the
+    tile gram's forward against autograd through the plain gram in float64
+    (cross-set for the x-gradients of the Matern term, whose same-set
+    diagonal puts sqrt at zero)."""
+    rng = np.random.default_rng(3)
+    kernel = ops.RBF() + ops.Matern(nu=2.5)
+    base = _params(({"sigma": 1.0, "lengthscale": 1.5}, {"sigma": 0.7, "lengthscale": 2.0}),
+                   cuda)
+    x1 = torch.tensor(rng.uniform(-3, 3, (500, 3)), dtype=torch.float32, device=cuda)
+    x2 = None if same else torch.tensor(rng.uniform(-3, 3, (300, 3)), dtype=torch.float32,
+                                        device=cuda)
+    w = torch.tensor(rng.standard_normal((500, 500 if same else 300)), dtype=torch.float32,
+                     device=cuda)
+
+    def grads(dtype, fn):
+        p = _leaves_with_grad(base, dtype)
+        a = x1.detach().to(dtype).requires_grad_(not same)
+        b = None if same else x2.detach().to(dtype).requires_grad_(True)
+        inputs = kops._k.tree_leaves(p) + ([] if same else [a, b])
+        return torch.autograd.grad(torch.sum(w.to(dtype) * fn(kernel, p, a, b)), inputs)
+
+    before = kops.launch_counts["gram_ad"]
+    got = grads(torch.float32, kops.gram_ad)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram_ad"] == before + 1
+    want = grads(torch.float64, kops.gram_reference)
+    for g, r in zip(got, want):
+        err = float((g.double() - r).abs().max())
+        assert err <= 1e-3 * float(r.abs().max())
+
+
+def test_dispatcher_rule_on_card(cuda):
+    """fp32 stationary -> the tile gram; float64, a non-stationary kernel
+    and a White leaf below the top-level sum -> the plain gram."""
+    x = torch.tensor(np.random.default_rng(0).uniform(-2, 2, (200, 2)), dtype=torch.float32,
+                     device=cuda)
+    rbf = _params({"sigma": 1.0, "lengthscale": 1.0}, cuda)
+    cases = [
+        (ops.RBF(), rbf, x, 1),
+        (ops.RBF(), rbf, x.double(), 0),
+        (ops.Linear(), _params({"offset": 0.1}, cuda), x, 0),
+        (ops.RBF() * ops.White(), (rbf, _params({"amplitude": 0.5}, cuda)), x, 0),
+    ]
+    for kernel, params, xx, launches in cases:
+        before = kops.launch_counts["gram"]
+        got = kops.gram(kernel, params, xx)
+        torch.cuda.synchronize()
+        assert kops.launch_counts["gram"] == before + launches
+        want = kops.gram_reference(kernel, params, xx)
+        assert got.dtype == xx.dtype
+        assert float((got.double() - want.double()).abs().max()) <= \
+            2e-4 * float(want.abs().max())
