@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GP regression serving and training paths and its
-Laplace classification paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's GP regression serving and training paths, its
+Laplace classification paths and its blocked Cholesky once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -48,10 +49,32 @@ one JSON line:
     ``gp.laplace_fit_multiclass_cg`` + ``gp.predict_multiclass_cg`` (C = 3,
     rank 256, chunks of 2048): both fits must converge, with K3 (Newton),
     K2 (the binary variance solves) and K1 (cross-grams) launched; then the
-    same pipelines at n = 4096 against the dense path under the gates of 9.
+    same pipelines at n = 4096 against the dense path under the gates of 9;
+11. kernels_chol: the panel factor and inverse (K6) against its plain
+    version in fp32, each against float64 ``torch.linalg`` (L and W within
+    1e-5 x max |float64| where the plain version is, else within 2x the
+    plain version's own error; exact zeros above the diagonal), on the chol
+    mode's first diagonal panel (b = 1024) and on X X^T / b + I at b = 1024,
+    96 (ragged) and 640; NaN down L's diagonal from an indefinite pivot;
+    then K6, the plain version and ``cholesky_ex`` + ``solve_triangular(L,
+    I)`` timed at b = 1024;
+12. chol_blocked: the JAX bench's chol mode at full width, n = 10240,
+    d = 4, RBF(1, 1) + 5e-4 I in fp32 (K by K1): ``linalg.blocked_cholesky
+    (block=1024, use_kernel=True)`` with exactly 10 K6 launches, alpha by
+    ``blocked_tri_solve`` with shared ``panel_inverses``, and the LML; beside
+    it the library-panel blocked factor, fp32 ``cholesky_ex`` and float64
+    ``torch.linalg`` on the same K, each timed, with its backward error
+    max |L L^T - K| / max |K| (in float64) and its rel LML (reported, not
+    gated). Gate: the K6-panel factor is finite with a backward error within
+    2x the library-panel factor's + 1e-7.
 
-Then a line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
-Any failure raises and exits non-zero; so does a machine without CUDA.
+Then a line ``{"kernels": [...]}``: per kernel its source, the TPU kernel it
+replaces, its launches on the main paths, its error against its plain
+version, its time, the plain version's, its bound (the larger of its fp32
+operations at 67 TFLOP/s and its bytes at 3.35 TB/s, from this run's shapes)
+and, where one PyTorch call computes the same function, that call's time.
+Last, ``{"ok": true, "device": ...}``. Any failure raises and exits
+non-zero; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -65,11 +88,12 @@ import time
 import numpy as np
 import torch
 
-from gaussian_process_tpu_torch import convert, gp, ops, opt
+from gaussian_process_tpu_torch import convert, gp, linalg, ops, opt
 from gaussian_process_tpu_torch.models import (GPBinaryClassifier, GPMulticlassClassifier,
                                                GPRegressor)
 from gaussian_process_tpu_torch.ops import kernels as tk
 from gaussian_process_tpu_torch.ops.cuda import _build
+from gaussian_process_tpu_torch.ops.cuda import chol as kchol
 from gaussian_process_tpu_torch.ops.cuda import kernel_ops as kops
 
 BOOK = [66, 67, 2.4, 90, 1.3, 0.66, 1.2, 0.78, 0.18, 1.6, 0.19]
@@ -88,6 +112,7 @@ SOURCES = {
     "gram_matvec_sym": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
     "gram_matvec_full": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
     "gram_matvec_bwd": "gaussian_process_tpu_torch/csrc/gram_matvec_bwd.cu",
+    "chol_inv_panel": "gaussian_process_tpu_torch/csrc/chol_panel.cu",
 }
 REPLACES = {
     "gram": "gaussian_process_tpu/ops/pallas/kernel_ops.py:141",
@@ -95,6 +120,7 @@ REPLACES = {
     "gram_matvec_sym": "gaussian_process_tpu/ops/pallas/kernel_ops.py:391",
     "gram_matvec_full": "gaussian_process_tpu/ops/pallas/kernel_ops.py:303",
     "gram_matvec_bwd": "gaussian_process_tpu/ops/pallas/kernel_ops.py:518",
+    "chol_inv_panel": "gaussian_process_tpu/ops/pallas/chol.py:155",
 }
 # K4 vs its plain version in float64: dL/dcoef per coefficient (fp32 entry
 # products summed in float64), dL/dx as the forward's bound
@@ -111,6 +137,13 @@ GRAD_RTOL = 1e-3  # K5's gradients against the plain gram's in float64
 N_CLS, M_CLS, C_CLS = 4096, 2048, 3
 CLS_CG_TOL, BIN_RANK, MC_RANK, BIN_CHUNK, MC_CHUNK = 1e-4, 512, 256, 512, 2048
 GATE_PROB, GATE_LABELS = 5e-3, 0.999
+# the blocked Cholesky: the JAX bench's chol mode (bench.py:555-614), RBF(1, 1)
+# + noise on bench.py's _make_data, factored in panels of 1024
+N_CHOL, BLOCK_CHOL, NOISE_CHOL = 10240, 1024, 5e-4
+CHOL_PANELS = (1024, 96, 640)  # K6's checks besides the path's panel: b = 96 is ragged
+CHOL_PANEL_RTOL = 1e-5  # K6 vs float64 (tests/test_blocked.py:166-167), where the plain meets it
+# the H100 SXM's published peaks: fp32 outside the tensor cores, and HBM
+FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
 # launches of each kernel on the main paths (each read just after its run)
 PATH_LAUNCHES = {name: 0 for name in kops.launch_counts}
 
@@ -289,9 +322,13 @@ def phase_kernels(device, gen: np.random.Generator) -> dict:
         ms_b = _time_ms(lambda: _run(name, kernel, params, x, v), 5)
         plain_b = _time_ms(lambda: kops.gram_matvec_reference(kernel, params, x, None, v,
                                                               same=True), 3)
+        # K3 evaluates the upper triangle once and applies each entry twice
+        evals = N_BIG * (N_BIG + 1) / 2 if name == "gram_matvec_sym" else N_BIG ** 2
         row = {"kernel": name, "n": N_BIG, "r": r, "max_abs_err": err, "max_abs_plain": scale,
                "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
-               "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b]}
+               "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b],
+               **_bound(evals * _entry_flops(D) + N_BIG ** 2 * 2 * r,
+                        (N_BIG * D + 2 * N_BIG * r) * 4)}
         if name in timings:
             extra.append(row)
         else:
@@ -408,12 +445,12 @@ def phase_kernels_gram(device, gen: np.random.Generator) -> dict:
         launch = _gram_launch(kernel, params, x1, x2)
         err, scale = _gram_err(launch(), kops.gram_reference(kernel, params, x1, x2))
         row = _in_turns(launch, lambda: kops.gram_reference(kernel, params, x1, x2), 20, 5)
+        entries = n * (m or n)
         row.update(kernel="gram", n=n, m=m or n, d=d, max_abs_err=err,
-                   store_floor_ms=n * (m or n) * 4 / 3.35e9,
+                   **_bound(entries * _entry_flops(d), (entries + (n + (m or 0)) * d) * 4),
                    dispatcher_ms=_time_ms(lambda: kops.gram(kernel, params, x1, x2), 20))
         timed.append(row)
-    emit("kernels_gram_timed", kernel="RBF(sigma=1)", plain="ops.gram in fp32",
-         store_floor="n m 4 bytes at 3.35 TB/s", rows=timed)
+    emit("kernels_gram_timed", kernel="RBF(sigma=1)", plain="ops.gram in fp32", rows=timed)
 
     check = _gram_ad_check(device, gen)
     # forward + params backward at the exact-training shape
@@ -428,7 +465,10 @@ def phase_kernels_gram(device, gen: np.random.Generator) -> dict:
                                            list(params.values()))
 
     row = _in_turns(fwd_bwd(kops.gram_ad), fwd_bwd(kops.gram_reference), 10, 10)
-    row.update(kernel="gram_ad", n=N_EXACT, d=D, max_abs_err=check["max_abs_err"])
+    # the function is (x, params, w) -> two gradients: w is read once, and
+    # each entry costs its evaluation and about four flops of its VJP
+    row.update(kernel="gram_ad", n=N_EXACT, d=D, max_abs_err=check["max_abs_err"],
+               **_bound(N_EXACT ** 2 * (_entry_flops(D) + 4), (N_EXACT ** 2 + N_EXACT * D) * 4))
     emit("gram_ad_check", tolerance=f"gradient max abs err <= {GRAD_RTOL} x max|float64 plain|",
          kernel="RBF + Matern(5/2)", rows=check["rows"], timed_forward_backward=row)
     return {"gram": timed[0], "gram_ad": row}
@@ -635,10 +675,14 @@ def phase_kernels_bwd(device, gen: np.random.Generator) -> dict:
         ms_a = _time_ms(run, 3)
         ms_b = _time_ms(run, 3)
         plain_b = _time_ms(plain, 1)
+        # per entry: the evaluation, the leaf's derivatives (about six
+        # flops), the G entry (2 r) and the coefficient sums (4)
         timed[r] = {"kernel": "gram_matvec_bwd", "n": N_BIG, "r": r, **errs,
                     "max_abs_err": errs["coef_abs_err"],
                     "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
-                    "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b]}
+                    "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b],
+                    **_bound(N_BIG ** 2 * (_entry_flops(D) + 6 + 2 * r + 4),
+                             (N_BIG * D + 2 * N_BIG * r) * 4)}
     emit("kernels_bwd_timed", kernel="RBF(sigma=1, lengthscale=2)", plain="fp32 plain VJP",
          rows=list(timed.values()))
     return timed[max(BWD_R)]
@@ -890,6 +934,205 @@ def phase_classify_large(device, gen: np.random.Generator) -> None:
         _gate(f"matrix-free {kind} vs dense at n = {N_CLS}", err, agree)
 
 
+def _entry_flops(d: int) -> int:
+    """fp32 operations of one RBF kernel entry: the squared distance (d
+    subtractions and d FMAs) and the leaf (two products and an exp)."""
+    return 3 * d + 3
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: flops over the fp32 peak or
+    bytes over the HBM rate, whichever is larger, and which one it is."""
+    ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _chol_data(n: int):
+    """bench.py's _make_data: x uniform in [-5, 5]^4, y = sin(0.9 sum x) +
+    0.02 noise, from its own seed 0."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-5.0, 5.0, (n, D))
+    return x, np.sin(0.9 * x.sum(axis=1)) + 0.02 * rng.standard_normal(n)
+
+
+def _chol_K(device, x: torch.Tensor) -> torch.Tensor:
+    """K of the chol mode, RBF(1, 1) + 5e-4 I in fp32, by the dense-gram
+    dispatcher (K1)."""
+    params = convert.params_from_numpy({"sigma": 1.0, "lengthscale": 1.0}, device=device,
+                                       dtype=torch.float32)
+    return linalg.add_diagonal(kops.gram(ops.RBF(), params, x), NOISE_CHOL)
+
+
+def _device_breakdown(fn, top: int = 6) -> dict:
+    """Device time of one call of ``fn`` by kernel name (torch.profiler,
+    after a warm-up): the total and the ``top`` largest items, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device events only: operator rows would count their kernels twice
+    times = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^\(anonymous namespace\)::", "", ev.name).split("(")[0][:48]
+            times[name] = times.get(name, 0.0) + ev.device_time_total / 1e3
+    items = sorted(times.items(), key=lambda kv: -kv[1])
+    return {"device_ms": sum(times.values()), "largest": [[k, v] for k, v in items[:top]]}
+
+
+def _panel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.max(torch.abs(got.double() - want)) / torch.max(torch.abs(want)))
+
+
+def phase_kernels_chol(device, gen: np.random.Generator) -> dict:
+    """K6 against its plain version and both against float64 torch.linalg,
+    on the chol mode's first diagonal panel and on X X^T / b + I panels; the
+    indefinite panel's NaN; then K6, the plain version and the library pair
+    cholesky_ex + solve_triangular(L, I) timed at b = 1024."""
+    x = torch.tensor(_chol_data(BLOCK_CHOL)[0], dtype=torch.float32, device=device)
+    panels = {"rbf_chol_panel_1024": _chol_K(device, x)}
+    for b in CHOL_PANELS:
+        X = torch.tensor(gen.standard_normal((b, b)), dtype=torch.float32, device=device)
+        panels[f"xxt_{b}"] = X @ X.T / b + torch.eye(b, device=device)
+    rows = []
+    for name, A in panels.items():
+        b = A.shape[0]
+        before = kops.launch_counts["chol_inv_panel"]
+        L, W = kchol.chol_inv_panel(A)
+        torch.cuda.synchronize()
+        require(kops.launch_counts["chol_inv_panel"] == before + 1, "chol_inv_panel launched")
+        Lp, Wp = kchol.chol_inv_panel_reference(A)
+        L64 = torch.linalg.cholesky(A.double())
+        W64 = torch.linalg.solve_triangular(
+            L64, torch.eye(b, dtype=torch.float64, device=device), upper=False)
+        row = {"panel": name, "b": b}
+        for part, got, plain, ref in (("L", L, Lp, L64), ("W", W, Wp, W64)):
+            err, plain_err = _panel_err(got, ref), _panel_err(plain, ref)
+            gate = CHOL_PANEL_RTOL if plain_err <= CHOL_PANEL_RTOL else 2.0 * plain_err
+            row.update({f"{part}_rel_err": err, f"{part}_plain_rel_err": plain_err,
+                        f"{part}_gate": gate,
+                        f"{part}_vs_plain_abs": float(torch.max(torch.abs(got - plain)))})
+            require(np.isfinite(err) and err <= gate,
+                    f"{name}: K6's {part} within {gate:.3e} of float64 (got {err:.3e})")
+            require(bool(torch.all(torch.triu(got, 1) == 0)), f"{name}: {part} is lower")
+        rows.append(row)
+    # an indefinite pivot: NaN from there on down L's diagonal
+    A = panels["xxt_640"].clone()
+    A[100, 100] = -1e3
+    L, _ = kchol.chol_inv_panel(A)
+    d = torch.diagonal(L)
+    nan_ok = bool(torch.isfinite(d[:100]).all() and torch.isnan(d[100:]).all())
+    emit("kernels_chol_vs_plain",
+         tolerance=f"L, W within {CHOL_PANEL_RTOL} x max|float64| where the plain version is, "
+                   "else within 2x the plain version's error; zero above the diagonal",
+         rows=rows, indefinite_nan_on_diagonal=nan_ok)
+    require(nan_ok, "an indefinite panel gives NaN on L's diagonal")
+
+    # timed on the path's panel: plain, kernel, kernel, plain; then the
+    # library pair the port never calls on this path
+    A = panels["rbf_chol_panel_1024"]
+    b = A.shape[0]
+    eye = torch.eye(b, device=device)
+    row = _in_turns(lambda: kchol.chol_inv_panel(A), lambda: kchol.chol_inv_panel_reference(A),
+                    50, 2)
+    library = lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A)[0], eye,
+                                                    upper=False)
+    row.update(kernel="chol_inv_panel", b=b, max_abs_err=max(rows[0]["L_vs_plain_abs"],
+                                                             rows[0]["W_vs_plain_abs"]),
+               library_ms=_time_ms(library, 50),
+               **_bound(2 * b ** 3 / 3, 3 * b * b * 4),
+               device_breakdown=_device_breakdown(lambda: kchol.chol_inv_panel(A)))
+    emit("kernels_chol_timed", panel="rbf_chol_panel_1024",
+         library="torch.linalg.cholesky_ex + solve_triangular(L, I)", **row)
+    return row
+
+
+def _lml(L: torch.Tensor, y: torch.Tensor, blocked: bool) -> torch.Tensor:
+    """R&W Alg. 2.1's LML from a factor, with the corrected log-determinant
+    sum(log diag L): alpha by blocked_tri_solve with shared panel inverses
+    for a blocked factor, by triangular solves otherwise."""
+    if blocked:
+        invs = linalg.panel_inverses(L, block=BLOCK_CHOL)
+        v = linalg.blocked_tri_solve(L, y, block=BLOCK_CHOL, invs=invs)
+        alpha = linalg.blocked_tri_solve(L, v, trans=True, block=BLOCK_CHOL, invs=invs)
+    else:
+        alpha = linalg.cholesky_solve(L, y)
+    return (-0.5 * torch.dot(y, alpha) - torch.sum(torch.log(torch.diagonal(L)))
+            - 0.5 * y.shape[0] * np.log(2 * np.pi))
+
+
+def phase_chol_blocked(device) -> None:
+    """The chol mode at full width: K by K1, ``linalg.blocked_cholesky`` with
+    K6 panels (exactly one K6 launch per panel), alpha and the LML; beside
+    it on the same K the library-panel blocked factor, fp32 cholesky_ex and
+    the float64 torch.linalg reference."""
+    x_np, y_np = _chol_data(N_CHOL)
+    x = torch.tensor(x_np, dtype=torch.float32, device=device)
+    y = torch.tensor(y_np, dtype=torch.float32, device=device)
+    panels = -(-N_CHOL // BLOCK_CHOL)
+
+    def kernel_factor(K):
+        return linalg.blocked_cholesky(K, block=BLOCK_CHOL, use_kernel=True)
+
+    def path():
+        K = _chol_K(device, x)
+        L = kernel_factor(K)
+        return K, L, _lml(L, y, True)
+
+    path()  # warm-up: cuBLAS handles, the build
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    K, L, lml = path()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kops.launch_counts)
+    add_launches(counts)
+    require(counts["chol_inv_panel"] == panels,
+            f"{panels} K6 launches on the path (got {counts['chol_inv_panel']})")
+    require(counts["gram"] > 0, "K came from K1")
+
+    K64 = K.double()
+    y64 = y.double()
+    variants = {
+        "kernel_panels": (kernel_factor, True, y),
+        "library_panels": (lambda K: linalg.blocked_cholesky(K, block=BLOCK_CHOL), True, y),
+        "cholesky_ex_fp32": (lambda K: torch.linalg.cholesky_ex(K)[0], False, y),
+        "float64": (lambda K: torch.linalg.cholesky(K.double()), False, y64),
+    }
+    rows = {}
+    for name, (factor, blocked, rhs) in variants.items():
+        Lv = L if name == "kernel_panels" else factor(K)
+        lml_v = lml if name == "kernel_panels" else _lml(Lv, rhs, blocked)
+        rows[name] = {
+            "factor_ms": _time_ms(lambda: factor(K), 3),
+            "ms": _time_ms(lambda: _lml(factor(K), rhs, blocked), 3),
+            "finite": bool(torch.isfinite(Lv).all()),
+            "lml": float(lml_v),
+        }
+        L64 = Lv.double()
+        rows[name]["backward_err"] = float(torch.max(torch.abs(L64 @ L64.T - K64))
+                                           / torch.max(torch.abs(K64)))
+        del L64
+    ref = rows["float64"]["lml"]
+    for row in rows.values():
+        row["rel_lml"] = abs(row["lml"] - ref) / abs(ref)
+    gate = 2 * rows["library_panels"]["backward_err"] + 1e-7
+    rows["kernel_panels"]["device_breakdown"] = _device_breakdown(lambda: kernel_factor(K))
+    rows["library_panels"]["device_breakdown"] = _device_breakdown(
+        lambda: linalg.blocked_cholesky(K, block=BLOCK_CHOL))
+    emit("chol_blocked", n=N_CHOL, d=D, block=BLOCK_CHOL, kernel="RBF(1, 1)", noise=NOISE_CHOL,
+         dtype="float32", path_seconds=seconds, launches=counts, variants=rows,
+         gate_backward_err=gate, note="rel LML reported, not gated")
+    require(rows["kernel_panels"]["finite"], "the K6-panel factor is finite")
+    require(rows["kernel_panels"]["backward_err"] <= gate,
+            f"K6-panel backward error {rows['kernel_panels']['backward_err']:.3e} <= {gate:.3e}")
+
+
 def main() -> int:
     phase_device()
     device = torch.device("cuda", 0)
@@ -904,13 +1147,16 @@ def main() -> int:
     phase_train_large(device, gen)
     phase_classify_dense(device, gen)
     phase_classify_large(device, gen)
+    timings["chol_inv_panel"] = phase_kernels_chol(device, gen)
+    phase_chol_blocked(device)
     emit("path_launches", launches=PATH_LAUNCHES)
     for name in timings:
         require(PATH_LAUNCHES[name] > 0, f"{name} launched on the main paths")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": PATH_LAUNCHES[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-         "plain_ms": t["plain_ms"]}
+         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+         "library_ms": t.get("library_ms")}
         for name, t in timings.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

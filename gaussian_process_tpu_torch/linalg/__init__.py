@@ -1,5 +1,10 @@
 """Dense and iterative linear algebra for GP solves."""
 
+from gaussian_process_tpu_torch.linalg.blocked import (
+    blocked_cholesky,
+    blocked_tri_solve,
+    panel_inverses,
+)
 from gaussian_process_tpu_torch.linalg.cholesky import (
     CholeskyResult,
     add_diagonal,
@@ -16,6 +21,9 @@ from gaussian_process_tpu_torch.linalg.nystrom import (
 )
 
 __all__ = [
+    "blocked_cholesky",
+    "blocked_tri_solve",
+    "panel_inverses",
     "CholeskyResult",
     "add_diagonal",
     "cholesky_solve",

@@ -10,9 +10,10 @@ Autograd flows through the accepted ``cholesky_ex`` call only, so the
 selected jitter is held constant in the gradient: the semantics of the JAX
 package's custom VJP, with no ``autograd.Function`` needed.
 
-The JAX package's ``linalg/blocked.py`` (a workaround for the TPU's matrix
-unit and XLA's triangular solve) has no counterpart: factorization and
-triangular solves go to ``torch.linalg``.
+Factorization and triangular solves here go to ``torch.linalg``, and so do
+those of ``gp/``. The JAX package's blocked factorization, with its panel
+kernel, is ported as its own entry point (``linalg/blocked.py``); nothing
+here routes through it.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Estimator facade: ``GPRegressor``, ``GPBinaryClassifier`` and
 ``GPMulticlassClassifier`` (torch counterparts of ``models/estimators.py``).
 
-``fit`` stores tensors on the estimator's device; every compute path
-delegates to the functions in ``gp``.
+``fit`` stores tensors on the estimator's device, the card unless the
+caller asks for another (``device="cpu"``); every compute path delegates to
+the functions in ``gp``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,22 @@ from gaussian_process_tpu_torch.ops import kernels as _k
 from gaussian_process_tpu_torch.opt import gradient as _grad
 
 
+def _resolve_device(device) -> torch.device:
+    """The estimators' device: the card (``torch.device("cuda")``) unless
+    the caller names another."""
+    return torch.device("cuda") if device is None else torch.device(device)
+
+
+def _check_device(device: torch.device) -> None:
+    """Refuse to fit on the card where there is none, rather than carry on
+    on the CPU."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the estimator's device is the GPU (device=None means cuda), but CUDA is not "
+            "available; pass device='cpu' to run on the CPU"
+        )
+
+
 class GPRegressor:
     """Exact GP regression (R&W Alg. 2.1) with optional LML hyperparameter
     optimisation by autograd, and a matrix-free solver for large n.
@@ -28,7 +45,9 @@ class GPRegressor:
     >>> mean, std = model.predict(x_test, return_std=True)
 
     ``device``: where the training data, the params and the computation
-    live (None: the device of the data given to ``fit``).
+    live (None: the card, ``torch.device("cuda")``; ``"cpu"`` for the CPU).
+    ``fit`` moves the data there, whatever device it arrives on, and raises
+    where the device is the card and CUDA is absent.
     """
 
     def __init__(
@@ -44,7 +63,7 @@ class GPRegressor:
         self.params = kernel.init_params() if params is None else params
         self.noise_variance = float(noise_variance)
         self.dist_method = dist_method
-        self.device = None if device is None else torch.device(device)
+        self.device = _resolve_device(device)
         self.x_train = None
         self.y_train = None
         self.lml_ = None
@@ -67,6 +86,7 @@ class GPRegressor:
         """Store the training set; optionally maximise the LML over the
         kernel hyperparameters (``opt.tune_gradient_ascent``). The params
         kept are detached tensors."""
+        _check_device(self.device)
         self.x_train = self._to_device(x)
         self.y_train = self._to_device(y)
         self.device = self.x_train.device
@@ -179,7 +199,7 @@ class _Classifier:
         self.kernel = kernel
         self.params = kernel.init_params() if params is None else params
         self.dist_method = dist_method
-        self.device = None if device is None else torch.device(device)
+        self.device = _resolve_device(device)
         self.x_train = None
         self.state = None
         self._solver = None
@@ -190,13 +210,14 @@ class _Classifier:
     def _store(self, x, solver: str) -> str:
         """Keep the training points and their params on the device; the
         solver "auto" resolves to "cg" above ``AUTO_CG_N`` points."""
+        if solver not in ("auto", "cg", "cholesky"):
+            raise ValueError(f"unknown solver {solver!r}")
+        _check_device(self.device)
         self.x_train = self._to_device(x)
         self.device = self.x_train.device
         self.params = _convert.params_from_numpy(self.params, device=self.device)
         if solver == "auto":
             solver = "cg" if self.x_train.shape[0] > AUTO_CG_N else "cholesky"
-        if solver not in ("cg", "cholesky"):
-            raise ValueError(f"unknown solver {solver!r}")
         self._solver = solver
         return solver
 
@@ -219,7 +240,7 @@ class GPBinaryClassifier(_Classifier):
     [ref: GP_binary_classification.py:104-105]).
 
     ``device``: where the training data, the params and the computation
-    live (None: the device of the data given to ``fit``).
+    live (None: the card; ``"cpu"`` for the CPU), as for ``GPRegressor``.
     """
 
     def __init__(

@@ -24,7 +24,7 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("gram.cu", "gram_matvec.cu", "gram_matvec_bwd.cu")
+SOURCES = ("chol_panel.cu", "gram.cu", "gram_matvec.cu", "gram_matvec_bwd.cu")
 HEADERS = ("gram_matvec_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -121,5 +121,7 @@ def load() -> ctypes.CDLL:
         lib.gm_gram.restype = i
         lib.gm_gram_smem_bytes.argtypes = [i]
         lib.gm_gram_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_chol_inv_panel.argtypes = [p, p, p, i, i, p]
+        lib.gm_chol_inv_panel.restype = i
         _lib = lib
     return _lib

@@ -75,9 +75,10 @@ MAX_SMEM_BYTES = 232448
 
 # launches of each kernel, counted where the wrapper launches it: "gram"
 # counts every launch of the tile gram, "gram_ad" those made by its
-# differentiable wrapper
+# differentiable wrapper, "chol_inv_panel" each call of the panel factor
+# (ops/cuda/chol.py), whatever its count of device launches
 launch_counts = {"gram": 0, "gram_ad": 0, "gram_matvec_full": 0, "gram_matvec_sym": 0,
-                 "gram_matvec_bwd": 0}
+                 "gram_matvec_bwd": 0, "chol_inv_panel": 0}
 
 
 def reset_launch_counts() -> None:

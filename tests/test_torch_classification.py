@@ -451,18 +451,18 @@ def test_cg_one_dimensional_inputs_are_points(rng, kind):
 
 def test_binary_classifier_moons():
     xtr, xte, ytr, yte = _moons(seed=0)
-    model = GPBinaryClassifier(tops.RBF()).fit(*_t(xtr, ytr))
+    model = GPBinaryClassifier(tops.RBF(), device="cpu").fit(*_t(xtr, ytr))
     assert model.score(torch.from_numpy(xte), torch.from_numpy(yte)) >= 0.8
     proba = model.predict_proba(torch.from_numpy(xte))
     assert bool(((proba >= 0) & (proba <= 1)).all())
-    labels = GPBinaryClassifier(tops.RBF()).fit(*_t(*_moons(seed=1)[::2])).predict(
-        torch.from_numpy(xte))
+    labels = GPBinaryClassifier(tops.RBF(), device="cpu").fit(
+        *_t(*_moons(seed=1)[::2])).predict(torch.from_numpy(xte))
     assert set(np.unique(labels.numpy())) <= {-1.0, 1.0}
 
 
 def test_multiclass_classifier_blobs():
     xtr, xte, ytr, yte = _blobs(seed=0)
-    model = GPMulticlassClassifier(tops.RBF(), num_classes=3).fit(*_t(xtr, ytr))
+    model = GPMulticlassClassifier(tops.RBF(), num_classes=3, device="cpu").fit(*_t(xtr, ytr))
     assert model.score(torch.from_numpy(xte), torch.from_numpy(yte)) >= 0.8
     _close(model.predict_proba(torch.from_numpy(xte)).sum(0), np.ones(len(xte)), rtol=1e-5)
 
@@ -483,8 +483,8 @@ def test_classifier_cg_solver_matches_cholesky(rng, kind):
     x = rng.uniform(-3, 3, (240 if kind == "binary" else 210, 2))
     y = _labels(kind, x)
     xt = torch.from_numpy(rng.uniform(-3, 3, (60, 2)))
-    make = (lambda: GPBinaryClassifier(tops.RBF())) if kind == "binary" else (
-        lambda: GPMulticlassClassifier(tops.RBF(), 3))
+    make = (lambda: GPBinaryClassifier(tops.RBF(), device="cpu")) if kind == "binary" else (
+        lambda: GPMulticlassClassifier(tops.RBF(), 3, device="cpu"))
     a = make().fit(*_t(x, y), solver="cholesky")
     b = make().fit(*_t(x, y), solver="cg", precond_rank=48)
     assert b._solver == "cg" and make().fit(*_t(x, y))._solver == "cholesky"  # auto
@@ -500,11 +500,12 @@ def test_classifier_facade_matches_jax(rng, kind, solver):
     xt = rng.uniform(-3, 3, (40, 2))
     if kind == "binary":
         jm = JBinary(jops.RBF()).fit(x, y, solver=solver, precond_rank=48)
-        tm = GPBinaryClassifier(tops.RBF()).fit(*_t(x, y), solver=solver, precond_rank=48)
+        tm = GPBinaryClassifier(tops.RBF(), device="cpu").fit(*_t(x, y), solver=solver,
+                                                             precond_rank=48)
     else:
         jm = JMulti(jops.RBF(), 3).fit(x, y, solver=solver, precond_rank=48)
-        tm = GPMulticlassClassifier(tops.RBF(), 3).fit(*_t(x, y), solver=solver,
-                                                       precond_rank=48)
+        tm = GPMulticlassClassifier(tops.RBF(), 3, device="cpu").fit(*_t(x, y), solver=solver,
+                                                                     precond_rank=48)
     rtol = 1e-9 if solver == "cholesky" else 1e-5
     _close(tm.predict_proba(torch.from_numpy(xt)), jm.predict_proba(xt), rtol=rtol, atol=1e-7)
     np.testing.assert_array_equal(tm.predict(torch.from_numpy(xt)).numpy(),

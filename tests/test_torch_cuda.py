@@ -274,3 +274,82 @@ def test_dispatcher_rule_on_card(cuda):
         assert got.dtype == xx.dtype
         assert float((got.double() - want.double()).abs().max()) <= \
             2e-4 * float(want.abs().max())
+
+
+def _panel_rel(got, ref):
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("b", [128, 96, 1024])
+def test_chol_inv_panel_matches_plain_on_card(cuda, b):
+    """K6 against float64 torch.linalg within 1e-5 x max |float64| where
+    its plain version is (the JAX panel bound), else within twice the plain
+    version's own error; exact zeros above the diagonal; one launch."""
+    from gaussian_process_tpu_torch.ops.cuda import chol as kchol
+
+    rng = np.random.default_rng(b)
+    X = torch.tensor(rng.standard_normal((b, b)), dtype=torch.float32, device=cuda)
+    A = X @ X.T / b + torch.eye(b, device=cuda)
+    before = kops.launch_counts["chol_inv_panel"]
+    L, W = kchol.chol_inv_panel(A)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["chol_inv_panel"] == before + 1
+    assert L.shape == W.shape == (b, b) and L.is_contiguous() and W.is_contiguous()
+    Lp, Wp = kchol.chol_inv_panel_reference(A)
+    L64 = torch.linalg.cholesky(A.double())
+    W64 = torch.linalg.solve_triangular(L64, torch.eye(b, dtype=torch.float64, device=cuda),
+                                        upper=False)
+    for got, plain, ref in ((L, Lp, L64), (W, Wp, W64)):
+        plain_err = _panel_rel(plain, ref)
+        assert _panel_rel(got, ref) <= (1e-5 if plain_err <= 1e-5 else 2 * plain_err)
+        assert bool((torch.triu(got, 1) == 0).all())
+
+
+def test_chol_inv_panel_nan_on_indefinite_on_card(cuda):
+    from gaussian_process_tpu_torch.ops.cuda import chol as kchol
+
+    A = 2.0 * torch.eye(200, device=cuda)
+    A[70, 70] = -1.0
+    L, W = kchol.chol_inv_panel(A)
+    d = torch.diagonal(L)
+    assert bool(torch.isfinite(d[:70]).all()) and bool(torch.isnan(d[70:]).all())
+    assert bool(torch.isnan(W[70:, :71]).all())
+
+
+def test_chol_inv_panel_refuses_on_card(cuda):
+    from gaussian_process_tpu_torch.ops.cuda import chol as kchol
+
+    with pytest.raises(ValueError, match="float32"):
+        kchol.chol_inv_panel(torch.eye(64, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        kchol.chol_inv_panel(torch.eye(128, device=cuda)[::2, ::2])
+    with pytest.raises(ValueError, match="exceeds"):
+        kchol.chol_inv_panel(torch.eye(1088, device=cuda))
+
+
+def test_blocked_cholesky_kernel_panels_on_card(cuda, monkeypatch):
+    """blocked_cholesky(use_kernel=True) at n = 4608 (four panels of 1024
+    and a ragged 512): one K6 launch per panel, a finite factor whose
+    backward error max |L L^T - K| / max |K| is within twice the
+    library-panel blocked factor's + 1e-7."""
+    from gaussian_process_tpu_torch import linalg
+    from gaussian_process_tpu_torch.linalg import blocked
+
+    monkeypatch.setattr(blocked, "MIN_BLOCKED_N", 1024)
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.uniform(-5, 5, (4608, 4)), dtype=torch.float32, device=cuda)
+    K = linalg.add_diagonal(kops.gram(ops.RBF(), _params({"sigma": 1.0, "lengthscale": 1.0},
+                                                         cuda), x), 5e-4)
+    before = kops.launch_counts["chol_inv_panel"]
+    L = linalg.blocked_cholesky(K, block=1024, use_kernel=True)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["chol_inv_panel"] == before + 5
+    L_lib = linalg.blocked_cholesky(K, block=1024)
+    K64 = K.double()
+
+    def backward_err(F):
+        F64 = F.double()
+        return float((F64 @ F64.T - K64).abs().max() / K64.abs().max())
+
+    assert bool(torch.isfinite(L).all())
+    assert backward_err(L) <= 2 * backward_err(L_lib) + 1e-7

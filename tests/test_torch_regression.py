@@ -139,7 +139,7 @@ def test_regressor_facade_matches_jax(rng, solver):
 
 
 def test_regressor_facade_refuses_training_and_unfitted_use():
-    model = TGPRegressor(tops.RBF())
+    model = TGPRegressor(tops.RBF(), device="cpu")
     with pytest.raises(RuntimeError):
         model.predict(torch.zeros(3, 1))
     # training is ported (tests/test_torch_opt.py); a request it cannot
@@ -191,7 +191,7 @@ def test_sample_posterior_factor_and_covariance(rng):
     emp = np.var(draws.numpy(), axis=1)
     assert np.corrcoef(emp, np.asarray(jpost.var) + 1e-6)[0, 1] > 0.98
     # the facade draws through the same function
-    model = TGPRegressor(tkernel, tparams, noise_variance=NOISE).fit(*_t(x, y))
+    model = TGPRegressor(tkernel, tparams, noise_variance=NOISE, device="cpu").fit(*_t(x, y))
     again = model.sample(torch.from_numpy(xs), torch.Generator().manual_seed(1),
                          num_functions=3000)
     np.testing.assert_allclose(again.numpy(), draws.numpy(), rtol=1e-12, atol=1e-12)
