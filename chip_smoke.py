@@ -13,7 +13,9 @@ one JSON line:
 2. build: compiles ``gaussian_process_tpu_torch/csrc`` with ``nvcc``;
 3. kernels: each hand-written CUDA kernel against its plain PyTorch version
    on the card (fp32, max abs error <= 2e-4 * max |plain|), and both timed
-   with CUDA events at the main path's shapes (n = 102400); the tile gram
+   with CUDA events at the main path's shapes (n = 102400; K3 at r = 9 and
+   r = 1, and run twice at r = 9, where its fixed-point sum must give equal
+   bits); the tile gram
    (K1) also within 1e-4 x max(1, max |plain|) absolute, timed at
    n = 8192 and 102400 x {512, 2048}; its autograd wrapper (K5): gradients
    within 1e-3 of the plain gram's in float64;
@@ -23,8 +25,10 @@ one JSON line:
    launch K1 and K5;
 5. matrix-free: ``gp.posterior_cg`` at n = 102400 (Nyström rank 2048,
    tol 1e-3) with m = 8 (the symmetric sweep) and m = 64 (the full sweep),
-   checked for convergence and for launches of each kernel, then the same
-   pipeline at n = 4096 against the exact path (max abs error < 1e-2);
+   checked for convergence and for launches of each kernel; the m = 8 run
+   twice, with equal CG iterations and bitwise-equal means and variances;
+   then the same pipeline at n = 4096 against the exact path (max abs
+   error < 1e-2);
 6. kernels_bwd: the CUDA backward sweep (K4) against its plain version in
    float64 (dL/dcoef within 1e-3 relative per coefficient, dL/dx within
    2e-4 x max |plain|) for RBF, Matern 5/2 and co2 without White at
@@ -50,6 +54,10 @@ one JSON line:
     rank 256, chunks of 2048): both fits must converge, with K3 (Newton),
     K2 (the binary variance solves) and K1 (cross-grams) launched; then the
     same pipelines at n = 4096 against the dense path under the gates of 9;
+    then estimator_numpy: ``GPBinaryClassifier(RBF).fit(x, y,
+    solver="auto")`` from NumPy float64 at n = 40000, which must store fp32,
+    go matrix-free through K3 and converge, and whose probabilities must
+    agree with the same fit from fp32 tensors (max |d prob| 5e-3);
 11. kernels_chol: the panel factor and inverse (K6) against its plain
     version in fp32, each against float64 ``torch.linalg`` (L and W within
     1e-5 x max |float64| where the plain version is, else within 2x the
@@ -57,7 +65,8 @@ one JSON line:
     mode's first diagonal panel (b = 1024) and on X X^T / b + I at b = 1024,
     96 (ragged) and 640; NaN down L's diagonal from an indefinite pivot;
     then K6, the plain version and ``cholesky_ex`` + ``solve_triangular(L,
-    I)`` timed at b = 1024;
+    I)`` timed at b = 1024, with K6's device time by kernel and the share
+    of its diagonal-tile kernel;
 12. chol_blocked: the JAX bench's chol mode at full width, n = 10240,
     d = 4, RBF(1, 1) + 5e-4 I in fp32 (K by K1): ``linalg.blocked_cholesky
     (block=1024, use_kernel=True)`` with exactly 10 K6 launches, alpha by
@@ -105,7 +114,9 @@ N_BIG, N_PARITY, D = 102400, 4096, 4  # the matrix-free path's sizes
 # posterior_cg solves [y | K_s], so a kernel sees r = m + 1 columns
 CG_RUNS = ((8, "gram_matvec_sym"), (64, "gram_matvec_full"))
 MAIN_R = {name: m + 1 for m, name in CG_RUNS}
-EXTRA_R = {"gram_matvec_sym": 16, "gram_matvec_full": 72}  # padded widths, checked too
+# other widths, checked and timed too: K3 at r = 1 (the binary Newton fit's
+# width) and the padded 16, K2 at 72
+EXTRA_R = (("gram_matvec_sym", 1), ("gram_matvec_sym", 16), ("gram_matvec_full", 72))
 SOURCES = {
     "gram": "gaussian_process_tpu_torch/csrc/gram.cu",
     "gram_ad": "gaussian_process_tpu_torch/csrc/gram.cu",
@@ -135,6 +146,7 @@ GRAM_ABS = 1e-4
 GRAD_RTOL = 1e-3  # K5's gradients against the plain gram's in float64
 # classification: the JAX laplace benches' shapes and gates
 N_CLS, M_CLS, C_CLS = 4096, 2048, 3
+N_NUMPY = 40000  # estimator_numpy: above the estimators' matrix-free threshold (32768)
 CLS_CG_TOL, BIN_RANK, MC_RANK, BIN_CHUNK, MC_CHUNK = 1e-4, 512, 256, 512, 2048
 GATE_PROB, GATE_LABELS = 5e-3, 0.999
 # the blocked Cholesky: the JAX bench's chol mode (bench.py:555-614), RBF(1, 1)
@@ -310,11 +322,18 @@ def phase_kernels(device, gen: np.random.Generator) -> dict:
     kernel, params = cases["rbf"]
     x = torch.tensor(gen.uniform(-5, 5, (N_BIG, D)), dtype=torch.float32, device=device)
     timings, extra = {}, []
-    for name, r in [*MAIN_R.items(), *EXTRA_R.items()]:
+    repeat = None
+    for name, r in [*MAIN_R.items(), *EXTRA_R]:
         v = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
         got = _run(name, kernel, params, x, v)
         want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
         err, scale = _max_err(got, want)
+        if name == "gram_matvec_sym" and r == MAIN_R[name]:
+            # the fixed-point sum: a second run gives the same bits
+            again = _run(name, kernel, params, x, v)
+            repeat = {"r": r, "bitwise_equal": bool(torch.equal(got, again)),
+                      "max_abs_diff": float(torch.max(torch.abs(got - again)))}
+            require(repeat["bitwise_equal"], f"K3 twice at n = {N_BIG}, r = {r}: equal bits")
         # plain, kernel, kernel, plain: compare within one call, in turns
         plain_a = _time_ms(lambda: kops.gram_matvec_reference(kernel, params, x, None, v,
                                                               same=True), 3)
@@ -334,7 +353,7 @@ def phase_kernels(device, gen: np.random.Generator) -> dict:
         else:
             timings[name] = row
     emit("kernels_timed", kernel="RBF(sigma=1, lengthscale=2)", main_path=timings,
-         padded_widths=extra)
+         other_widths=extra, k3_repeat=repeat)
     return timings
 
 
@@ -530,7 +549,8 @@ def phase_matrix_free(device, gen: np.random.Generator) -> None:
     kernel = ops.RBF()
     x, y, params = _cg_problem(device, gen, N_BIG)
     tol, noise = 1e-3, 1e-2
-    for m, expect in CG_RUNS:
+    runs = {}
+    for m, expect in (*CG_RUNS, CG_RUNS[0]):  # the symmetric-sweep run twice
         xs = x[:m] + 0.1
         torch.cuda.synchronize()
         kops.reset_launch_counts()
@@ -541,6 +561,7 @@ def phase_matrix_free(device, gen: np.random.Generator) -> None:
         seconds = time.perf_counter() - t0
         counts = dict(kops.launch_counts)
         add_launches(counts)
+        runs.setdefault(m, []).append(post)
         require(counts[expect] > 0, f"{expect} launched in the m={m} run")
         # cg_solve stops at tol * max-column ||rhs||, rhs = [y | K_s]
         rhs = torch.cat([y[:, None], ops.gram(kernel, params, x, xs)], dim=1).double()
@@ -552,6 +573,15 @@ def phase_matrix_free(device, gen: np.random.Generator) -> None:
              resnorm=resnorm, stop=stop, converged=resnorm <= stop, seconds=seconds,
              launches=counts)
         require(resnorm <= stop, f"CG converged at m={m}")
+
+    # K3's fixed-point sum makes the whole solve repeat itself bit for bit
+    first, second = runs[CG_RUNS[0][0]]
+    same = {"iters": [first.iters, second.iters],
+            "mean_bitwise_equal": bool(torch.equal(first.mean, second.mean)),
+            "var_bitwise_equal": bool(torch.equal(first.var, second.var))}
+    emit("matrix_free_repeat", n=N_BIG, m=CG_RUNS[0][0], **same)
+    require(first.iters == second.iters and same["mean_bitwise_equal"]
+            and same["var_bitwise_equal"], "posterior_cg twice: equal iterations and bits")
 
     # the same pipeline at n = 4096 against the exact path
     xs_small, ys_small = x[:N_PARITY], y[:N_PARITY]
@@ -934,6 +964,31 @@ def phase_classify_large(device, gen: np.random.Generator) -> None:
         _gate(f"matrix-free {kind} vs dense at n = {N_CLS}", err, agree)
 
 
+def phase_estimator_numpy(device, gen: np.random.Generator) -> None:
+    """The binary classifier from NumPy float64 at n = 40000: ``fit``
+    stores fp32 (torch's default dtype), ``solver="auto"`` goes matrix-free
+    and launches K3; its probabilities against the same fit from fp32
+    tensors."""
+    x, y, _, xt = _cls_data(gen, N_NUMPY, M_CLS)
+    model, seconds, counts = _timed(
+        lambda: GPBinaryClassifier(ops.RBF(), device=device).fit(x, y, solver="auto"))
+    prob = model.predict_proba(xt)
+    ref = GPBinaryClassifier(ops.RBF(), device=device).fit(
+        torch.tensor(x, dtype=torch.float32), torch.tensor(y, dtype=torch.float32), solver="cg")
+    err, agree = _agreement(prob, ref.predict_proba(torch.tensor(xt, dtype=torch.float32)))
+    emit("estimator_numpy", model="binary", n=N_NUMPY, m=M_CLS, input="numpy float64",
+         stored_dtype=str(model.x_train.dtype), solver=model._solver,
+         newton_iters=model.state.iters, converged=model.state.converged, fit_seconds=seconds,
+         max_abs_prob_err_vs_fp32_tensors=err, label_agreement=agree, launches=counts)
+    require(model.x_train.dtype == torch.float32 and model._solver == "cg",
+            "NumPy float64 input stored as fp32 and fitted matrix-free")
+    require(counts["gram_matvec_sym"] > 0 and model.state.converged,
+            "the NumPy-fed fit launched K3 and converged")
+    require(prob.shape == (M_CLS,) and bool(torch.isfinite(prob).all()),
+            "finite probabilities of the expected shape")
+    _gate("NumPy-fed vs fp32-tensor fit", err, agree)
+
+
 def _entry_flops(d: int) -> int:
     """fp32 operations of one RBF kernel entry: the squared distance (d
     subtractions and d FMAs) and the leaf (two products and an exp)."""
@@ -1041,11 +1096,13 @@ def phase_kernels_chol(device, gen: np.random.Generator) -> dict:
                     50, 2)
     library = lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A)[0], eye,
                                                     upper=False)
+    breakdown = _device_breakdown(lambda: kchol.chol_inv_panel(A))
+    diag_ms = sum(ms for name, ms in breakdown["largest"] if name == "diag_kernel")
     row.update(kernel="chol_inv_panel", b=b, max_abs_err=max(rows[0]["L_vs_plain_abs"],
                                                              rows[0]["W_vs_plain_abs"]),
                library_ms=_time_ms(library, 50),
                **_bound(2 * b ** 3 / 3, 3 * b * b * 4),
-               device_breakdown=_device_breakdown(lambda: kchol.chol_inv_panel(A)))
+               device_breakdown=breakdown, diag_kernel_share=diag_ms / breakdown["device_ms"])
     emit("kernels_chol_timed", panel="rbf_chol_panel_1024",
          library="torch.linalg.cholesky_ex + solve_triangular(L, I)", **row)
     return row
@@ -1147,6 +1204,7 @@ def main() -> int:
     phase_train_large(device, gen)
     phase_classify_dense(device, gen)
     phase_classify_large(device, gen)
+    phase_estimator_numpy(device, gen)
     timings["chol_inv_panel"] = phase_kernels_chol(device, gen)
     phase_chol_blocked(device)
     emit("path_launches", launches=PATH_LAUNCHES)

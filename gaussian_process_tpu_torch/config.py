@@ -19,9 +19,10 @@ class SolveConfig:
     sampling_jitter: float = 1e-6  # posterior-sample jitter [ref: GP_regression.py:154]
     max_chol_attempts: int = 8  # jitter-escalation retries on non-PSD K
     jitter_growth: float = 10.0
-    # Conjugate-gradient settings (large-n path). Tolerances below 1e-5
-    # switch the fused matvec to its "highest" output dot (gp.posterior_cg);
-    # the CUDA kernel runs full fp32 FMAs in both modes.
+    # Conjugate-gradient settings (large-n path). The tolerance does not
+    # change the fused matvec: its CUDA kernels form the output product
+    # with plain fp32 FMAs at every tolerance (the JAX package's dot_mode
+    # has no counterpart here).
     cg_tol: float = 1e-6
     cg_max_iters: int = 1000
     cg_precondition: bool = True

@@ -14,7 +14,10 @@
 // of fp32 outside the tensor cores. The bytes are A read once and L, W
 // written once, 3 b^2 4 = 12.6 MB: 3.8 us at 3.35 TB/s. So about 0.011 ms.
 // This simple design sits far above that: its b pivots are dependent steps,
-// two block barriers each, and its sweep is a chain of launches.
+// one block barrier each, and its sweep is a chain of launches. The pivots
+// are latency: a pivot's arithmetic is a few FMAs a thread, so what counts
+// is the chain from one pivot's shared-memory read through rsqrtf and the
+// update to the next barrier.
 //
 // What the design does about it:
 //   * the TPU kernel holds three (b, b) buffers in VMEM (12 MB at b = 1024);
@@ -26,10 +29,11 @@
 //     caller's stream, right-looking over S = 64 columns at a time:
 //       init:   L = the lower block triangle of A, W = 0;
 //       for each sub-panel s, with W_ss = L_ss^{-1}:
-//         diag   (one block): factor and invert the (s, s) tile in shared
-//                memory, pivot by pivot (the recurrence of
+//         diag   (one block): factor and invert the (s, s) tile held in
+//                registers, pivot by pivot (the recurrence of
 //                _chol_inv_unblocked: L's column, W's row by forward
-//                substitution, the rank-1 trailing update);
+//                substitution, the rank-1 trailing update), with only the
+//                next pivot's column and row published in shared memory;
 //         panel  (a grid): L[t, s] = A[t, s] W_ss^T for each tile t > s, and
 //                W[s, u] = W_ss B[s, u] for each u < s;
 //         update (a grid): A[t, u] -= L[t, s] L[u, s]^T for t >= u > s (the
@@ -127,54 +131,119 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Factor and invert the diagonal tile (s, s) of L in shared memory. Pivot j:
-// L's column j is a[:, j] rsqrt(d) (d = a[j][j]); W's row j is
+constexpr int ROWS = S * S / THREADS;  // tile rows a thread of diag_kernel owns (16)
+
+// Factor and invert the diagonal tile (s, s) of L. Pivot j: L's column j is
+// a[:, j] rsqrt(d) (d = a[j][j]); W's row j is
 // (e_j - sum_{k<j} L[j, k] W[k, :]) rsqrt(d); then the trailing rank-1
 // update of a and of the running sums. Rows <= j of w hold W, rows > j the
 // running sums sum_k L[r, k] W[k, :].
+//
+// The tile lives in registers: thread t owns column c = t % 64 and rows
+// 16 g + k (g = t / 64, k = 0..15) of a and of w, 32 values whose indices
+// are compile-time constants (the k loops are unrolled). A pivot needs from
+// other threads only a's column j and w's row j, as they stand after pivot
+// j - 1. Their owners publish them into two double-buffered shared vectors
+// (col, row) right after their update, so one barrier a pivot orders
+// everything: a buffer is rewritten two pivots after it was read, behind
+// the barrier in between.
+//
+// A pivot's arithmetic is a few FMAs a thread, so its cost is issue and
+// latency: eight warps share four schedulers, and every instruction of the
+// update is paid once a pivot by each warp. So the update does no work it
+// can avoid (on an H100, forms that masked every entry by its row, or that
+// indexed the register array by the runtime pivot, took three to ten times
+// the cycles a pivot):
+//   * a lane with c > j updates all its rows of a: the rows below the
+//     diagonal are the trailing update, those above it are never read
+//     unmasked and are zeroed on output;
+//   * a lane with c <= j updates w; only the two warps holding row j test
+//     rows;
+//   * the warps whose rows all lie above the pivot skip it (a branch uniform
+//     over the warp);
+//   * a's column c is left raw after its pivot and scaled on output by that
+//     pivot's rsqrt, which the thread keeps: l = a[r][c] rs_c is the same
+//     product either way;
+//   * the pivot loop is unrolled by 16, one warp pair's rows at a time, so
+//     which register holds row j + 1 of w, the buffer's parity and the row
+//     tests of the warps holding row j are compile-time constants (a
+//     runtime index into the register array compiles to a ladder of
+//     compares and branches).
+// Each entry is l = a[r][j] rs, a[r][c] = fmaf(-l, L[c][j], a[r][c]) and
+// w[r][c] = fmaf(l, W[j][c], w[r][c]), with W[j][c] = ((c == j) -
+// w[j][c]) rs, so an indefinite pivot makes NaN of exactly the entries it
+// reaches in the recurrence.
 __global__ void __launch_bounds__(THREADS) diag_kernel(float* L, float* W, int ld, int s) {
-  __shared__ float a[S][LDS];
-  __shared__ float w[S][LDS];
-  __shared__ float lcol[S], wrow[S];
+  __shared__ __align__(16) float col[2][S];
+  __shared__ float row[2][S];
   float* Lt = tile(L, ld, s, s);
   float* Wt = tile(W, ld, s, s);
-  for (int idx = threadIdx.x; idx < S * S; idx += THREADS) {
-    const int r = idx / S, c = idx % S;
-    a[r][c] = Lt[(size_t)r * ld + c];
-    w[r][c] = 0.0f;
+  const int c = threadIdx.x % S;
+  const int r0 = (threadIdx.x / S) * ROWS;  // this thread's first row
+  float a[ROWS], w[ROWS];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    a[k] = Lt[(size_t)(r0 + k) * ld + c];
+    w[k] = 0.0f;
   }
+  if (c == 0) {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) col[0][r0 + k] = a[k];
+  }
+  if (r0 == 0) row[0][c] = 0.0f;
   __syncthreads();
-  const int c = threadIdx.x % S;  // this thread's column; rows r0, r0 + 4, ...
-  const int r0 = threadIdx.x / S;
-  for (int j = 0; j < S; ++j) {
-    const float rs = rsqrtf(a[j][j]);
-    if (threadIdx.x < S) {
-      const int i = threadIdx.x;
-      lcol[i] = i >= j ? a[i][j] * rs : 0.0f;
-    } else if (threadIdx.x < 2 * S) {
-      const int k = threadIdx.x - S;
-      wrow[k] = k <= j ? ((k == j ? 1.0f : 0.0f) - w[j][k]) * rs : 0.0f;
-    }
-    __syncthreads();
-    for (int r = r0; r < S; r += THREADS / S) {
-      if (c == j) {
-        if (r >= j) a[r][c] = lcol[r];
-      } else if (c > j && r >= c) {
-        a[r][c] = fmaf(-lcol[r], lcol[c], a[r][c]);
+  float rs_own = 0.0f;  // rsqrt of this thread's column's pivot
+#pragma unroll 1
+  for (int jb = 0; jb < S; jb += ROWS) {  // the pivots of one warp pair's rows
+#pragma unroll
+    for (int jj = 0; jj < ROWS; ++jj) {  // unrolled: jj, the buffer and k's tests are constants
+      const int j = jb + jj, p = jj & 1;
+      const float rs = rsqrtf(col[p][j]);
+      if (c == j) rs_own = rs;
+      if (r0 >= jb) {  // some of this warp's rows are at or below the pivot
+        float l[ROWS];  // L[r][j], used where r >= j
+        const float4* mine = reinterpret_cast<const float4*>(&col[p][r0]);
+#pragma unroll
+        for (int q = 0; q < ROWS / 4; ++q) {
+          const float4 v = mine[q];
+          l[4 * q] = v.x * rs;
+          l[4 * q + 1] = v.y * rs;
+          l[4 * q + 2] = v.z * rs;
+          l[4 * q + 3] = v.w * rs;
+        }
+        if (c > j) {
+          const float lc = col[p][c] * rs;  // L[c][j]
+#pragma unroll
+          for (int k = 0; k < ROWS; ++k) a[k] = fmaf(-l[k], lc, a[k]);
+        } else {
+          const float wr = ((c == j ? 1.0f : 0.0f) - row[p][c]) * rs;  // W[j][c]
+          if (r0 > jb) {
+#pragma unroll
+            for (int k = 0; k < ROWS; ++k) w[k] = fmaf(l[k], wr, w[k]);
+          } else {  // the warps holding row j: row r0 + k is row j at k = jj
+#pragma unroll
+            for (int k = jj; k < ROWS; ++k) w[k] = k == jj ? wr : fmaf(l[k], wr, w[k]);
+          }
+        }
       }
-      if (c <= j) {
-        if (r == j)
-          w[r][c] = wrow[c];
-        else if (r > j)
-          w[r][c] = fmaf(lcol[r], wrow[c], w[r][c]);
+      if (j + 1 < S) {
+        if (c == j + 1) {
+          float4* dst = reinterpret_cast<float4*>(&col[p ^ 1][r0]);
+#pragma unroll
+          for (int q = 0; q < ROWS / 4; ++q)
+            dst[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+        }
+        // row j + 1 of w is row (jj + 1) % ROWS of the warps from jb or jb + ROWS
+        if (r0 == jb + (jj + 1) / ROWS * ROWS) row[p ^ 1][c] = w[(jj + 1) % ROWS];
+        __syncthreads();
       }
     }
-    __syncthreads();
   }
-  for (int idx = threadIdx.x; idx < S * S; idx += THREADS) {
-    const int r = idx / S, cc = idx % S;
-    Lt[(size_t)r * ld + cc] = cc <= r ? a[r][cc] : 0.0f;
-    Wt[(size_t)r * ld + cc] = cc <= r ? w[r][cc] : 0.0f;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int r = r0 + k;
+    Lt[(size_t)r * ld + c] = c <= r ? a[k] * rs_own : 0.0f;
+    Wt[(size_t)r * ld + c] = c <= r ? w[k] : 0.0f;
   }
 }
 

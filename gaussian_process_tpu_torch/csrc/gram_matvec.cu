@@ -21,8 +21,33 @@
 //   * The symmetric sweep evaluates only the upper-triangle tiles (half the
 //     transcendentals). GPU blocks run concurrently and in no order, so the
 //     two contributions of a tile (T V_j into out_i and T^T V_i into out_j)
-//     are added with atomicAdd into a zeroed fp32 output. The summation
-//     order therefore varies from run to run at fp32 rounding level.
+//     meet in one sum across blocks. fp32 atomicAdd would make that sum
+//     depend on the order of the adds, and its bits change from run to run
+//     (the TPU's sequential grid gives the same bits every time). So each
+//     contribution is rounded to a 64-bit fixed-point integer and added with
+//     an integer atomicAdd, which is associative: any order gives the same
+//     bits. A second launch turns the integers into the fp32 output.
+//   * Fixed point (matvec_sym_kernel, sym_finish_kernel). Column c has its
+//     own scale 2^e_c, chosen by the wrapper (ops/cuda/kernel_ops.py,
+//     sym_fixed_point_scales) so that k(0) sum_j |V[j, c]| 2^e_c <= 2^61.
+//     Every tree the wrapper encodes is a white-free stationary
+//     positive-definite kernel, and such a kernel has |k(r)| <= k(0) (tested
+//     for every family in tests/test_torch_kernel_ops.py). So out[i, c] and
+//     every partial sum of its contributions are at most
+//     k(0) sum_j |V[j, c]| in magnitude, and the fp32 rounding of a tile's
+//     64-term partial adds far less than the factor 4 left below 2^63: no
+//     sum can overflow. The resolution is 2^-61 of that bound, far finer
+//     than fp32 atomics, which round at |out| 2^-24 on every add. The scale
+//     is applied in double, where 2^e_c and acc 2^e_c are exact for any e_c.
+//   * Sign convention: a contribution is a two's-complement int64, added as
+//     unsigned long long (atomicAdd has no signed 64-bit form). An
+//     intermediate sum may wrap around; the wraparound cancels exactly, since
+//     the final sum fits in int64 by the bound above.
+//   * NaN and Inf: an integer cannot hold them (__double2ll_rn(NaN) is a
+//     number). A non-finite partial sets its column's flag with atomicOr; the
+//     wrapper sets the flag of a column whose bound is not finite (NaN or Inf
+//     in V or in the params); the finishing pass writes NaN into a flagged
+//     column, as an fp32 sum would carry the NaN into every row.
 //   * The full sweep loops over all x2 tiles inside the block (this loop
 //     takes the place of the TPU's sequential grid axis), so it needs no
 //     atomics: each output row block is written once.
@@ -164,18 +189,28 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Adds the partial tile acc into the fixed-point sums: round(acc 2^e_col)
+// with an integer atomicAdd; a non-finite partial flags its column.
 template <int TR>
-__device__ __forceinline__ void atomic_flush(const float (&acc)[TM][TR], float* out,
-                                             int row0, int n, int c0, int r, int tx, int ty) {
+__device__ __forceinline__ void fixed_flush(const float (&acc)[TM][TR],
+                                            unsigned long long* sum, unsigned int* flag,
+                                            const double* scale, int row0, int n, int c0, int r,
+                                            int tx, int ty) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= n) continue;
+  for (int j = 0; j < TR; ++j) {
+    const int col = c0 + tx + 16 * j;
+    if (col >= r) continue;
+    const double s = scale[col];
+    bool finite = true;
 #pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (col < r) atomicAdd(out + (size_t)row * r + col, acc[i][j]);
+    for (int i = 0; i < TM; ++i) {
+      const int row = row0 + ty + 16 * i;
+      if (row >= n) continue;
+      finite &= isfinite(acc[i][j]);
+      const long long q = __double2ll_rn((double)acc[i][j] * s);
+      atomicAdd(sum + (size_t)row * r + col, (unsigned long long)q);
     }
+    if (!finite) atomicOr(flag + col, 1u);
   }
 }
 
@@ -183,9 +218,10 @@ __device__ __forceinline__ void atomic_flush(const float (&acc)[TM][TR], float* 
 template <int TR>
 __global__ void __launch_bounds__(THREADS)
     matvec_sym_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                      float* __restrict__ out, const int* __restrict__ prog, int n_instr,
-                      const float* __restrict__ coef, int n_coef, int n, int d, int r, int p,
-                      int need_l2) {
+                      unsigned long long* __restrict__ sum, unsigned int* __restrict__ flag,
+                      const double* __restrict__ scale, const int* __restrict__ prog,
+                      int n_instr, const float* __restrict__ coef, int n_coef, int n, int d,
+                      int r, int p, int need_l2) {
   constexpr int RT = 16 * TR;
   extern __shared__ float smem[];
   const Smem s = carve(smem, RT, d, true);
@@ -219,7 +255,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int j = 0; j < TR; ++j) acc[i][j] = 0.0f;
   tile_product<TR>(acc, s.k, s.va, tx, ty, false);  // T V_j -> out_i
-  atomic_flush<TR>(acc, out, row_i, n, c0, r, tx, ty);
+  fixed_flush<TR>(acc, sum, flag, scale, row_i, n, c0, r, tx, ty);
 
   if (ti != tj) {
 #pragma unroll
@@ -227,7 +263,20 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < TR; ++j) acc[i][j] = 0.0f;
     tile_product<TR>(acc, s.k, s.vb, tx, ty, true);  // T^T V_i -> out_j
-    atomic_flush<TR>(acc, out, row_j, n, c0, r, tx, ty);
+    fixed_flush<TR>(acc, sum, flag, scale, row_j, n, c0, r, tx, ty);
+  }
+}
+
+// out = sum / 2^e_col, or NaN in a flagged column.
+__global__ void __launch_bounds__(THREADS)
+    sym_finish_kernel(const long long* __restrict__ sum, const unsigned int* __restrict__ flag,
+                      const double* __restrict__ scale, float* __restrict__ out,
+                      long long total, int r) {
+  for (long long idx = (long long)blockIdx.x * THREADS + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * THREADS) {
+    const int col = (int)(idx % r);
+    out[idx] = flag[col] ? __int_as_float(0x7fc00000)
+                         : (float)((double)sum[idx] / scale[col]);
   }
 }
 
@@ -280,13 +329,17 @@ int gm_matvec_full(const float* x1, const float* x2, const float* v, float* out,
   return (int)cudaGetLastError();
 }
 
-// out (n x r) += K(x, x) @ v from the upper-triangle tiles; out must be
-// zeroed by the caller. Returns cudaGetLastError() after the launch.
-int gm_matvec_sym(const float* x, const float* v, float* out, const int* prog, int n_instr,
-                  const float* coef, int n_coef, int n, int d, int r, int need_l2,
-                  void* stream) {
+// out (n x r) = K(x, x) @ v from the upper-triangle tiles, bitwise the same
+// on every run. Scratch from the caller: sum (n x r int64, zeroed), flag (r
+// int32, 1 where a column's bound is not finite, else 0) and scale (r
+// doubles, 2^e_c). Two launches: the sweep into sum, then the finishing
+// pass into out. Returns the first launch error, else cudaGetLastError().
+int gm_matvec_sym(const float* x, const float* v, float* out, void* sum, unsigned int* flag,
+                  const double* scale, const int* prog, int n_instr, const float* coef,
+                  int n_coef, int n, int d, int r, int need_l2, void* stream) {
   if (bad_program(n_instr, n_coef) || n < 1 || d < 1 || r < 1)
     return (int)cudaErrorInvalidValue;
+  unsigned long long* acc = static_cast<unsigned long long*>(sum);
   const int p = (n + TILE - 1) / TILE;
   const long long tiles = (long long)p * (p + 1) / 2;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -299,8 +352,9 @@ int gm_matvec_sym(const float* x, const float* v, float* out, const int* prog, i
   case TRV:                                                                               \
     err = prepare(matvec_sym_kernel<TRV>, smem);                                          \
     if (err != cudaSuccess) return (int)err;                                              \
-    matvec_sym_kernel<TRV><<<grid, THREADS, smem, st>>>(x, v, out, prog, n_instr, coef,   \
-                                                         n_coef, n, d, r, p, need_l2);    \
+    matvec_sym_kernel<TRV><<<grid, THREADS, smem, st>>>(x, v, acc, flag, scale, prog,     \
+                                                         n_instr, coef, n_coef, n, d, r, p, \
+                                                         need_l2);                        \
     break;
   switch (tr) {
     GM_LAUNCH_SYM(1)
@@ -313,6 +367,11 @@ int gm_matvec_sym(const float* x, const float* v, float* out, const int* prog, i
     GM_LAUNCH_SYM(8)
   }
 #undef GM_LAUNCH_SYM
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long total = (long long)n * r;
+  const long long blocks = (total + THREADS - 1) / THREADS;
+  sym_finish_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(
+      static_cast<const long long*>(sum), flag, scale, out, total, r);
   return (int)cudaGetLastError();
 }
 

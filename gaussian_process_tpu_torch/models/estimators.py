@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from gaussian_process_tpu_torch import convert as _convert
@@ -24,6 +25,23 @@ def _resolve_device(device) -> torch.device:
     """The estimators' device: the card (``torch.device("cuda")``) unless
     the caller names another."""
     return torch.device("cuda") if device is None else torch.device(device)
+
+
+def _as_tensor(x, device: torch.device, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` on ``device``. A tensor keeps its dtype. Anything else (a NumPy
+    array, a list) keeps an integer type (class labels), and floating
+    values take ``like``'s dtype where given (test points and targets
+    follow the training points), else ``torch.get_default_dtype()``: fp32
+    unless the caller changed it, as ``jnp.asarray`` gives fp32 without x64.
+    So NumPy float64 data reaches the fp32 CUDA kernels, not the plain
+    float64 path."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    t = torch.as_tensor(np.asarray(x))
+    if t.is_floating_point():
+        floating = like is not None and like.is_floating_point()
+        t = t.to(like.dtype if floating else torch.get_default_dtype())
+    return t.to(device)
 
 
 def _check_device(device: torch.device) -> None:
@@ -69,7 +87,7 @@ class GPRegressor:
         self.lml_ = None
 
     def _to_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        return _as_tensor(x, self.device, like=self.x_train)
 
     def fit(
         self,
@@ -87,7 +105,7 @@ class GPRegressor:
         kernel hyperparameters (``opt.tune_gradient_ascent``). The params
         kept are detached tensors."""
         _check_device(self.device)
-        self.x_train = self._to_device(x)
+        self.x_train = _as_tensor(x, self.device)
         self.y_train = self._to_device(y)
         self.device = self.x_train.device
         self.params = _convert.params_from_numpy(self.params, device=self.device)
@@ -205,7 +223,7 @@ class _Classifier:
         self._solver = None
 
     def _to_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        return _as_tensor(x, self.device, like=self.x_train)
 
     def _store(self, x, solver: str) -> str:
         """Keep the training points and their params on the device; the
@@ -213,7 +231,7 @@ class _Classifier:
         if solver not in ("auto", "cg", "cholesky"):
             raise ValueError(f"unknown solver {solver!r}")
         _check_device(self.device)
-        self.x_train = self._to_device(x)
+        self.x_train = _as_tensor(x, self.device)
         self.device = self.x_train.device
         self.params = _convert.params_from_numpy(self.params, device=self.device)
         if solver == "auto":

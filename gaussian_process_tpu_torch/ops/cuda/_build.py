@@ -109,7 +109,7 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gm_matvec_full.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, p]
         lib.gm_matvec_full.restype = i
-        lib.gm_matvec_sym.argtypes = [p, p, p, p, i, p, i, i, i, i, i, p]
+        lib.gm_matvec_sym.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, p]
         lib.gm_matvec_sym.restype = i
         lib.gm_smem_bytes.argtypes = [i, i, i]
         lib.gm_smem_bytes.restype = ctypes.c_size_t

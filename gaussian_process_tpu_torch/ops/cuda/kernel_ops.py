@@ -70,6 +70,9 @@ MAX_STACK = 8
 MAX_BWD_INSTR = 16
 MAX_BWD_COEF = 16
 BWD_ROWS = 64  # x1 rows per block of the backward sweep (its partials' count)
+# the symmetric sweep's fixed point: each column's largest sum is scaled to
+# at most 2^61, two bits below int64's range (csrc/gram_matvec.cu)
+FIXED_POINT_BITS = 61
 # largest dynamic shared memory a block may use on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 
@@ -172,7 +175,8 @@ def coef_vector(coefs, *, dtype, device) -> torch.Tensor:
 def eval_program(program, coef: torch.Tensor, sq: torch.Tensor,
                  l2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Torch interpreter of the postfix program (the CUDA tile evaluator's
-    arithmetic, op for op). Used by the tests to check the encoding."""
+    arithmetic, op for op). The tests check the encoding with it, and
+    :func:`sym_fixed_point_scales` takes k(0) from it."""
     if l2 is None:
         l2 = torch.sqrt(sq)
     stack: List[torch.Tensor] = []
@@ -545,22 +549,52 @@ def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.
     return out
 
 
+def sym_fixed_point_scales(program, coef: torch.Tensor,
+                           v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The symmetric sweep's fixed-point scales (``csrc/gram_matvec.cu``):
+    ``(scale, flag)``, both (r,) on v's device. ``scale[c]`` is 2^e_c
+    (float64), the largest power of two with
+    k(0) sum_j |v[j, c]| 2^e_c <= 2^FIXED_POINT_BITS, where k(0) is the
+    program's value at distance 0, which bounds |k(r)| for the
+    white-free stationary trees that :func:`encode` builds. ``flag[c]``
+    (int32) is 1 where that bound is not finite (NaN or Inf in v or in the
+    coefficients): the kernel then writes NaN into the column. A zero bound
+    takes the scale 1, and e_c is clamped to +-1000 so that 2^e_c stays a
+    finite double. Torch reductions on the device, deterministic for a
+    given shape, so a rerun picks the same scales."""
+    zero = torch.zeros(1, dtype=torch.float64, device=v.device)
+    k0 = eval_program(program, coef.to(torch.float64), zero)[0]
+    bound = torch.abs(k0) * torch.sum(torch.abs(v), dim=0, dtype=torch.float64)
+    finite = torch.isfinite(bound)
+    usable = finite & (bound > 0)
+    e = torch.floor(FIXED_POINT_BITS - torch.log2(torch.where(usable, bound,
+                                                               torch.ones_like(bound))))
+    e = torch.where(usable, e, torch.zeros_like(e)).clamp(-1000.0, 1000.0)
+    return torch.exp2(e), (~finite).to(torch.int32)
+
+
 def matvec_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tensor, *,
                     need_l2: bool) -> torch.Tensor:
     """K(x, x) @ v by the upper-triangle CUDA kernel (centred contiguous
     fp32 CUDA tensors xc (n, d), v (n, r); ``program`` and ``coef`` as in
-    :func:`matvec_full_cuda`)."""
+    :func:`matvec_full_cuda`). The kernel sums in 64-bit fixed point
+    (:func:`sym_fixed_point_scales`), so the same inputs give the same bits
+    on every run. One call is two device launches (the sweep and its
+    finishing pass) and counts one launch."""
     _check_cuda_f32(coef=coef, x=xc, v=v)
     n, d = xc.shape
     if v.shape[0] != n:
         raise ValueError(f"v has {v.shape[0]} rows, x has {n}")
     r = v.shape[1]
     lib, prog = _forward_args(program, coef, xc, v, True)
-    out = torch.zeros((n, r), dtype=torch.float32, device=xc.device)
+    scale, flag = sym_fixed_point_scales(program, coef, v)
+    acc = torch.zeros((n, r), dtype=torch.int64, device=xc.device)
+    out = torch.empty((n, r), dtype=torch.float32, device=xc.device)
     with torch.cuda.device(xc.device):
         err = lib.gm_matvec_sym(
-            xc.data_ptr(), v.data_ptr(), out.data_ptr(), prog.data_ptr(), len(program),
-            coef.data_ptr(), coef.numel(), n, d, r, int(need_l2), _stream(xc.device),
+            xc.data_ptr(), v.data_ptr(), out.data_ptr(), acc.data_ptr(), flag.data_ptr(),
+            scale.data_ptr(), prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(),
+            n, d, r, int(need_l2), _stream(xc.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_sym launch failed: cudaError {err}")

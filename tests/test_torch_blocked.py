@@ -267,3 +267,33 @@ def test_torch_estimators_default_to_the_card(rng, monkeypatch):
         assert model.device == torch.device("cpu") and model.x_train.device.type == "cpu"
         out = model.predict(torch.from_numpy(x[:5]))
         assert out.device.type == "cpu" and torch.isfinite(out.double()).all()
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])  # regressor, binary, multi-class
+def test_torch_estimators_take_numpy_in_the_default_dtype(rng, which):
+    """NumPy float64 data becomes torch's default dtype, fp32 (as the JAX
+    estimators' ``jnp.asarray`` gives fp32 without x64), so on the card it
+    reaches the fp32 kernels; integer labels stay integer; float64 tensors
+    stay float64; test points follow the training points' dtype."""
+    x = rng.uniform(-3, 3, (40, 2))
+    y = np.where(x[:, 0] > 0, 1.0, -1.0)
+    labels = (x[:, 0] > 0).astype(np.int64)
+    target = (y, y, labels)[which]
+    model = _estimators(device="cpu")[which].fit(x, target)
+    assert model.x_train.dtype == torch.float32
+    stored = (getattr(model, "y_train", None), None, getattr(model, "y_labels", None))[which]
+    if which == 0:
+        assert stored.dtype == torch.float32
+    elif which == 2:
+        assert stored.dtype == torch.int64 and torch.equal(stored, torch.from_numpy(labels))
+    out = model.predict(x[:5])
+    assert torch.isfinite(out.double()).all()
+    if which == 0:
+        assert out.dtype == torch.float32
+    else:
+        # labels compare by value, whatever dtype the estimator chose
+        assert model.score(x[:5], out.numpy()) == 1.0
+    f64 = _estimators(device="cpu")[which].fit(torch.from_numpy(x), torch.from_numpy(target))
+    assert f64.x_train.dtype == torch.float64
+    if which == 0:
+        assert f64.predict(x[:5]).dtype == torch.float64

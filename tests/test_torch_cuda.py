@@ -44,9 +44,52 @@ def test_kernel_matches_plain_on_card(cuda, n, r, symmetric):
     torch.cuda.synchronize()
     assert kops.launch_counts[name] == before + 1
     want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
-    # fp32 sums over n terms in another order (and atomics in the
-    # symmetric sweep)
+    # fp32 sums over n terms in another order (the symmetric sweep's tile
+    # partials are fp32 before its fixed-point sum)
     assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("r", [1, 9, 64])
+def test_sym_sweep_is_bitwise_reproducible_on_card(cuda, r):
+    """K3 sums its tiles' contributions in 64-bit fixed point: two runs on
+    the same inputs give equal bits (fp32 atomics did not), within the
+    plain version's tolerance; one launch counted per call."""
+    rng = np.random.default_rng(20 + r)
+    kernel = ops.Sum(children=(ops.RBF(), ops.Matern(nu=1.5)))
+    params = _params(({"sigma": 1.0, "lengthscale": 1.5}, {"sigma": 0.7, "lengthscale": 2.0}),
+                     cuda)
+    n = 4100  # 65 tiles, the last ragged
+    x = torch.tensor(rng.uniform(-5, 5, (n, 3)), dtype=torch.float32, device=cuda)
+    v = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float32, device=cuda)
+    before = kops.launch_counts["gram_matvec_sym"]
+    first = kops.gram_matvec(kernel, params, x, None, v, symmetric=True)
+    second = kops.gram_matvec(kernel, params, x, None, v, symmetric=True)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram_matvec_sym"] == before + 2
+    assert torch.equal(first, second)
+    want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
+    assert float((first - want).abs().max()) <= 2e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("where", ["v", "params"])
+def test_sym_sweep_propagates_nan_on_card(cuda, where):
+    """A NaN in V makes its column NaN in every row, NaN params make every
+    entry NaN, as an fp32 sum would: the integers cannot carry a NaN, so
+    the kernel flags the column."""
+    rng = np.random.default_rng(4)
+    sigma = float("nan") if where == "params" else 1.0
+    params = _params({"sigma": sigma, "lengthscale": 1.5}, cuda)
+    x = torch.tensor(rng.uniform(-5, 5, (700, 3)), dtype=torch.float32, device=cuda)
+    v = torch.tensor(rng.standard_normal((700, 9)), dtype=torch.float32, device=cuda)
+    if where == "v":
+        v[123, 4] = float("nan")
+    out = kops.gram_matvec(ops.RBF(), params, x, None, v, symmetric=True)
+    nan = torch.isnan(out)
+    if where == "v":
+        rest = torch.cat([out[:, :4], out[:, 5:]], dim=1)
+        assert bool(nan[:, 4].all()) and bool(torch.isfinite(rest).all())
+    else:
+        assert bool(nan.all())
 
 
 def test_full_sweep_cross_set_on_card(cuda):
@@ -280,11 +323,12 @@ def _panel_rel(got, ref):
     return float((got.double() - ref).abs().max() / ref.abs().max())
 
 
-@pytest.mark.parametrize("b", [128, 96, 1024])
+@pytest.mark.parametrize("b", [64, 128, 96, 1024])
 def test_chol_inv_panel_matches_plain_on_card(cuda, b):
     """K6 against float64 torch.linalg within 1e-5 x max |float64| where
     its plain version is (the JAX panel bound), else within twice the plain
-    version's own error; exact zeros above the diagonal; one launch."""
+    version's own error; exact zeros above the diagonal; one launch (b = 64
+    is one tile: init and one diagonal-tile launch)."""
     from gaussian_process_tpu_torch.ops.cuda import chol as kchol
 
     rng = np.random.default_rng(b)
@@ -353,3 +397,25 @@ def test_blocked_cholesky_kernel_panels_on_card(cuda, monkeypatch):
 
     assert bool(torch.isfinite(L).all())
     assert backward_err(L) <= 2 * backward_err(L_lib) + 1e-7
+
+
+def test_binary_classifier_from_numpy_goes_matrix_free_on_card(cuda):
+    """From NumPy float64 at n = 40000, ``fit(solver="auto")`` stores fp32
+    on the card and runs the matrix-free Newton through K3 (float64 used to
+    reach ``kernel_operator``, which refuses it above n = 32768). The
+    binary classifier and not ``GPRegressor``, whose ``fit`` computes a
+    dense LML, about 13 GB in float64 at this n."""
+    from gaussian_process_tpu_torch.models import GPBinaryClassifier
+
+    rng = np.random.default_rng(8)
+    n = 40000
+    x = rng.uniform(-3, 3, (n, 2))
+    y = np.where(np.sin(1.5 * x[:, 0]) - x[:, 1] > 0, 1.0, -1.0)
+    before = kops.launch_counts["gram_matvec_sym"]
+    model = GPBinaryClassifier(ops.RBF()).fit(x, y, solver="auto")
+    torch.cuda.synchronize()
+    assert model._solver == "cg" and model.x_train.dtype == torch.float32
+    assert model.x_train.is_cuda and model.state.converged
+    assert kops.launch_counts["gram_matvec_sym"] > before
+    prob = model.predict_proba(x[:256])
+    assert prob.shape == (256,) and bool(torch.isfinite(prob).all())

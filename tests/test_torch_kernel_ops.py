@@ -8,6 +8,10 @@
   interpreter, against ``ops.gram`` for every family (rtol 1e-12, f64).
 - The sweep rule, against the rule the JAX package applies.
 - The CUDA wrappers raise on CPU tensors instead of running anything.
+- The symmetric sweep's fixed-point sum: the bound |k(r)| <= k(0) it rests
+  on, for every family at drawn params; its scales and flags; and a NumPy
+  int64 emulation that gives equal bits in any order of the adds, within
+  1e-6 relative of float64.
 """
 
 import jax.numpy as jnp
@@ -190,3 +194,141 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kops.matvec_bwd_cuda(program, coef, x, x, v, v, need_l2=False, want_dx=True)
     assert kops.launch_counts == before
+
+
+# ------------------------------------------------ the symmetric sweep's fixed point
+#
+# K3 (csrc/gram_matvec.cu) rounds each tile's contribution to an integer
+# multiple of 2^-e_c and sums the integers with atomics, so the order of the
+# adds cannot change the bits. Its scale rests on |k(r)| <= k(0) for every
+# tree that ``encode`` builds; the card's own runs are in test_torch_cuda.py.
+
+
+def _bound_family(name, u):
+    """A kernel tree and its params from the positive draws ``u``."""
+    rbf = (tops.RBF(), {"sigma": u[0], "lengthscale": u[1]})
+    periodic = (tops.Periodic(), {"period": u[2], "lengthscale": u[3]})
+    decayed = (tops.DecayedPeriodic(),
+               {"amplitude": u[4], "decay": u[5], "smoothness": u[1], "period": u[2]})
+    if name.startswith("matern"):
+        return tops.Matern(nu={"matern12": 0.5, "matern32": 1.5, "matern52": 2.5}[name]), \
+            {"sigma": u[0], "lengthscale": u[1]}
+    if name == "rq":
+        return tops.RationalQuadratic(), {"amplitude": u[0], "lengthscale": u[1], "alpha": u[2]}
+    if name == "sum_with_white":
+        return tops.Sum(children=(rbf[0], periodic[0], tops.White())), \
+            (rbf[1], periodic[1], {"amplitude": u[5]})
+    if name == "product":
+        return tops.Matern(nu=2.5) * periodic[0], ({"sigma": u[4], "lengthscale": u[5]},
+                                                   periodic[1])
+    if name == "scaled_product":
+        return tops.Scaled(base=rbf[0] * decayed[0]), {"amplitude": u[3],
+                                                       "base": (rbf[1], decayed[1])}
+    return {"rbf": rbf, "periodic": periodic, "decayed_periodic": decayed}[name]
+
+
+BOUND_FAMILIES = ["rbf", "matern12", "matern32", "matern52", "periodic", "decayed_periodic",
+                  "rq", "sum_with_white", "product", "scaled_product"]
+
+
+@pytest.mark.parametrize("name", BOUND_FAMILIES)
+def test_encoded_kernels_peak_at_distance_zero(name):
+    """The fixed-point bound: for every family ``encode`` accepts, at
+    drawn params, max over a grid of distances of |k(r)| <= k(0). The
+    float64 evaluation may round k(r) a few ulps above k(0) near r = 0, so
+    the check allows 1e-12 relative; the kernel's scale leaves a factor 4
+    below int64's range."""
+    from hypothesis import given, settings, strategies as st
+
+    @settings(max_examples=30, deadline=None, database=None, derandomize=True)
+    @given(st.lists(st.floats(0.05, 20.0), min_size=6, max_size=6))
+    def check(u):
+        kernel, params = _bound_family(name, u)
+        program, coefs = kops.encode(kernel, _f64(params))
+        coef = kops.coef_vector(coefs, dtype=torch.float64, device="cpu")
+        l2 = torch.cat([torch.linspace(0.0, 1e-3, 101, dtype=torch.float64),
+                        torch.linspace(0.0, 60.0, 6001, dtype=torch.float64)])
+        k = kops.eval_program(program, coef, l2 * l2, l2)
+        k0 = float(k[0])
+        assert k0 >= 0.0 and float(torch.max(torch.abs(k))) <= k0 * (1.0 + 1e-12)
+
+    check()
+
+
+def _emulated_sym_sweep(K, v, scale, order, tile=64):
+    """NumPy int64 emulation of K3 on a dense float64 K: the upper tiles'
+    two contributions (T V_j -> rows i, T^T V_i -> rows j) as fp32 partials,
+    each rounded half-even to round(partial 2^e_c) and added into int64
+    sums in the given order of contributions (NumPy's int64 adds wrap, as
+    the kernel's unsigned atomics do); then sum / 2^e_c in double, to fp32."""
+    n, r = v.shape
+    p = -(-n // tile)
+    parts = []
+    for ti in range(p):
+        for tj in range(ti, p):
+            I, J = slice(ti * tile, (ti + 1) * tile), slice(tj * tile, (tj + 1) * tile)
+            T = K[I, J]
+            parts.append((I, (T @ v[J]).astype(np.float32)))
+            if ti != tj:
+                parts.append((J, (T.T @ v[I]).astype(np.float32)))
+    acc = np.zeros((n, r), np.int64)
+    for idx in order(len(parts)):
+        rows, part = parts[idx]
+        acc[rows] += np.rint(part.astype(np.float64) * scale).astype(np.int64)
+    return (acc.astype(np.float64) / scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("r", [1, 9, 64])
+def test_sym_fixed_point_sum_is_order_free(rng, r):
+    """The scale helper and the fixed-point sum: the same bits in every
+    order of the contributions, within 1e-6 relative (to the largest
+    entry) of float64 K @ V; each scale a power of two with
+    k(0) sum_j |V[j, c]| scale <= 2^61 < twice that."""
+    n = 300  # five 64-row tiles, the last ragged
+    kernel, params = tops.RBF() + tops.Matern(nu=1.5), (
+        {"sigma": 1.3, "lengthscale": 0.8}, {"sigma": 0.6, "lengthscale": 2.0})
+    params = _f64(params)
+    x = torch.from_numpy(rng.uniform(-4, 4, (n, 3)))
+    v = rng.standard_normal((n, r)).astype(np.float32).astype(np.float64)
+    v[:, 0] *= 1e3  # columns of unlike magnitude get their own scales
+    K = tops.gram(kernel, params, x).numpy()
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device="cpu")
+    scale, flag = kops.sym_fixed_point_scales(program, coef, torch.from_numpy(v).float())
+    scale = scale.numpy()
+    assert flag.dtype == torch.int32 and not flag.any()
+    mant, _ = np.frexp(scale)
+    assert np.all(mant == 0.5)
+    bound = (1.3 ** 2 + 0.6 ** 2) * np.abs(v).sum(axis=0) * scale
+    assert np.all(bound <= 2.0 ** 61 * (1 + 1e-6)) and np.all(bound > 2.0 ** 60 * (1 - 1e-6))
+    orders = [lambda m: range(m), lambda m: range(m - 1, -1, -1)] + [
+        (lambda m, g=np.random.default_rng(s): g.permutation(m)) for s in range(3)]
+    outs = [_emulated_sym_sweep(K, v, scale, order) for order in orders]
+    for out in outs[1:]:
+        assert np.array_equal(out.view(np.int32), outs[0].view(np.int32))
+    want = K @ v
+    assert float(np.max(np.abs(outs[0] - want))) <= 1e-6 * float(np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("case", ["zero_column", "nan_in_v", "inf_in_v", "nan_params"])
+def test_sym_fixed_point_scales_flag_what_an_integer_cannot_hold(rng, case):
+    """A column whose bound is not finite is flagged (the kernel writes
+    NaN there); a zero column takes the scale 1; the others are untouched."""
+    kernel = tops.RBF()
+    sigma = float("nan") if case == "nan_params" else 1.0
+    params = _f64({"sigma": sigma, "lengthscale": 1.0})
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device="cpu")
+    v = torch.from_numpy(rng.standard_normal((100, 3))).float()
+    if case == "zero_column":
+        v[:, 1] = 0.0
+    elif case != "nan_params":
+        v[17, 1] = float("nan") if case == "nan_in_v" else float("inf")
+    scale, flag = kops.sym_fixed_point_scales(program, coef, v)
+    want_flag = [1, 1, 1] if case == "nan_params" else [0, int(case != "zero_column"), 0]
+    assert flag.tolist() == want_flag
+    assert bool(torch.isfinite(scale).all())
+    if case == "zero_column":
+        assert float(scale[1]) == 1.0
+    if case != "nan_params":
+        assert float(scale[0]) > 1.0
