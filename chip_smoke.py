@@ -13,9 +13,11 @@ one JSON line:
 2. build: compiles ``gaussian_process_tpu_torch/csrc`` with ``nvcc``;
 3. kernels: each hand-written CUDA kernel against its plain PyTorch version
    on the card (fp32, max abs error <= 2e-4 * max |plain|), and both timed
-   with CUDA events at the main path's shapes (n = 102400; K3 at r = 9 and
-   r = 1, and run twice at r = 9, where its fixed-point sum must give equal
-   bits); the tile gram
+   with CUDA events at the main path's shapes (n = 102400; K3 at r = 9, 1, 3
+   and 16, and run twice at r = 9, where its fixed-point sum must give equal
+   bits, with its device time by kernel; K3 at the classifiers' d = 2,
+   RBF(1, 1), r = 1 and 3; K3 against K2 at r in {9, 16, 33, 64} and
+   n in {4096, 102400}, recorded for the sweep rule); the tile gram
    (K1) also within 1e-4 x max(1, max |plain|) absolute, timed at
    n = 8192 and 102400 x {512, 2048}; its autograd wrapper (K5): gradients
    within 1e-3 of the plain gram's in float64;
@@ -115,12 +117,17 @@ N_BIG, N_PARITY, D = 102400, 4096, 4  # the matrix-free path's sizes
 CG_RUNS = ((8, "gram_matvec_sym"), (64, "gram_matvec_full"))
 MAIN_R = {name: m + 1 for m, name in CG_RUNS}
 # other widths, checked and timed too: K3 at r = 1 (the binary Newton fit's
-# width) and the padded 16, K2 at 72
-EXTRA_R = (("gram_matvec_sym", 1), ("gram_matvec_sym", 16), ("gram_matvec_full", 72))
+# width), r = 3 (the multi-class fit's) and 16 (one full pass), K2 at 72
+EXTRA_R = (("gram_matvec_sym", 1), ("gram_matvec_sym", 3), ("gram_matvec_sym", 16),
+           ("gram_matvec_full", 72))
+# K3 at the classifiers' shape, d = 2 and RBF(1, 1): the Newton fits' widths
+CLS_R = (1, 3)
+# K3 against K2 on the same inputs, recorded for the sweep rule's gate
+CROSS_R, CROSS_N = (9, 16, 33, 64), (4096, 102400)
 SOURCES = {
     "gram": "gaussian_process_tpu_torch/csrc/gram.cu",
     "gram_ad": "gaussian_process_tpu_torch/csrc/gram.cu",
-    "gram_matvec_sym": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
+    "gram_matvec_sym": "gaussian_process_tpu_torch/csrc/gram_matvec_sym.cu",
     "gram_matvec_full": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
     "gram_matvec_bwd": "gaussian_process_tpu_torch/csrc/gram_matvec_bwd.cu",
     "chol_inv_panel": "gaussian_process_tpu_torch/csrc/chol_panel.cu",
@@ -316,45 +323,74 @@ def phase_kernels(device, gen: np.random.Generator) -> dict:
          cases=checked)
 
     # at the main path's shapes: n = 102400, r = 9 (K3) and r = 65 (K2), as
-    # the dispatch rule picks them; then the padded widths 16 and 72
+    # the dispatch rule picks them; then the other widths
     require(all(kops.use_symmetric(N_BIG, r) == (name == "gram_matvec_sym")
                 for name, r in MAIN_R.items()), "main-path widths reach their kernels")
     kernel, params = cases["rbf"]
     x = torch.tensor(gen.uniform(-5, 5, (N_BIG, D)), dtype=torch.float32, device=device)
     timings, extra = {}, []
-    repeat = None
+    repeat = breakdown = None
     for name, r in [*MAIN_R.items(), *EXTRA_R]:
         v = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
-        got = _run(name, kernel, params, x, v)
-        want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
-        err, scale = _max_err(got, want)
+        row, got = _matvec_timed(name, kernel, params, x, v)
         if name == "gram_matvec_sym" and r == MAIN_R[name]:
             # the fixed-point sum: a second run gives the same bits
             again = _run(name, kernel, params, x, v)
             repeat = {"r": r, "bitwise_equal": bool(torch.equal(got, again)),
                       "max_abs_diff": float(torch.max(torch.abs(got - again)))}
             require(repeat["bitwise_equal"], f"K3 twice at n = {N_BIG}, r = {r}: equal bits")
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        plain_a = _time_ms(lambda: kops.gram_matvec_reference(kernel, params, x, None, v,
-                                                              same=True), 3)
-        ms_a = _time_ms(lambda: _run(name, kernel, params, x, v), 5)
-        ms_b = _time_ms(lambda: _run(name, kernel, params, x, v), 5)
-        plain_b = _time_ms(lambda: kops.gram_matvec_reference(kernel, params, x, None, v,
-                                                              same=True), 3)
-        # K3 evaluates the upper triangle once and applies each entry twice
-        evals = N_BIG * (N_BIG + 1) / 2 if name == "gram_matvec_sym" else N_BIG ** 2
-        row = {"kernel": name, "n": N_BIG, "r": r, "max_abs_err": err, "max_abs_plain": scale,
-               "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
-               "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b],
-               **_bound(evals * _entry_flops(D) + N_BIG ** 2 * 2 * r,
-                        (N_BIG * D + 2 * N_BIG * r) * 4)}
+            # device time by kernel: the sweep, its finishing pass, the scales
+            breakdown = _device_breakdown(lambda: _run(name, kernel, params, x, v))
         if name in timings:
             extra.append(row)
         else:
             timings[name] = row
+    # the classifiers' shape
+    kernel2, params2 = ops.RBF(), convert.params_from_numpy(
+        {"sigma": 1.0, "lengthscale": 1.0}, device=device, dtype=torch.float32)
+    x2 = torch.tensor(gen.uniform(-3, 3, (N_BIG, 2)), dtype=torch.float32, device=device)
+    classifiers = []
+    for r in CLS_R:
+        v = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
+        classifiers.append(_matvec_timed("gram_matvec_sym", kernel2, params2, x2, v)[0])
     emit("kernels_timed", kernel="RBF(sigma=1, lengthscale=2)", main_path=timings,
-         other_widths=extra, k3_repeat=repeat)
+         other_widths=extra, k3_repeat=repeat, k3_device_breakdown=breakdown,
+         classifier_shape={"kernel": "RBF(sigma=1, lengthscale=1)", "d": 2,
+                           "rows": classifiers})
+
+    # K3 against K2 on the same inputs (symmetric forced either way): where
+    # the sweeps cross, recorded only; the dispatch rule stays the JAX one's
+    crossover = []
+    for n in CROSS_N:
+        xn = x[:n]
+        for r in CROSS_R:
+            v = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
+            reps = 20 if n < N_BIG else 2
+            sym = lambda: _run("gram_matvec_sym", kernel, params, xn, v)
+            full = lambda: _run("gram_matvec_full", kernel, params, xn, v)
+            full_a, sym_a, sym_b, full_b = (_time_ms(f, reps) for f in (full, sym, sym, full))
+            crossover.append({"n": n, "r": r, "k3_ms": min(sym_a, sym_b),
+                              "k2_ms": min(full_a, full_b),
+                              "use_symmetric": kops.use_symmetric(n, r)})
+    emit("k3_k2_crossover", kernel="RBF(sigma=1, lengthscale=2)", d=D, rows=crossover)
     return timings
+
+
+def _matvec_timed(name, kernel, params, x, v):
+    """A forward sweep at the paths' shapes against its plain version, then
+    both timed in turns (plain, kernel, kernel, plain): (row, output)."""
+    n, d = x.shape
+    r = v.shape[1]
+    got = _run(name, kernel, params, x, v)
+    want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
+    err, scale = _max_err(got, want)
+    plain = lambda: kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
+    row = _in_turns(lambda: _run(name, kernel, params, x, v), plain, 5, 3)
+    # K3 evaluates the upper triangle once and applies each entry twice
+    evals = n * (n + 1) / 2 if name == "gram_matvec_sym" else n ** 2
+    row.update(kernel=name, n=n, d=d, r=r, max_abs_err=err, max_abs_plain=scale,
+               **_bound(evals * _entry_flops(d) + n ** 2 * 2 * r, (n * d + 2 * n * r) * 4))
+    return row, got
 
 
 def _gram_err(got: torch.Tensor, want: torch.Tensor):
@@ -1033,7 +1069,7 @@ def _device_breakdown(fn, top: int = 6) -> dict:
     times = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            name = re.sub(r"^\(anonymous namespace\)::", "", ev.name).split("(")[0][:48]
+            name = re.sub(r"^(void )?\(anonymous namespace\)::", "", ev.name).split("(")[0][:48]
             times[name] = times.get(name, 0.0) + ev.device_time_total / 1e3
     items = sorted(times.items(), key=lambda kv: -kv[1])
     return {"device_ms": sum(times.values()), "largest": [[k, v] for k, v in items[:top]]}

@@ -24,8 +24,9 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("chol_panel.cu", "gram.cu", "gram_matvec.cu", "gram_matvec_bwd.cu")
-HEADERS = ("gram_matvec_common.cuh",)
+SOURCES = ("chol_panel.cu", "gram.cu", "gram_matvec.cu", "gram_matvec_bwd.cu",
+           "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
+HEADERS = ("gram_matvec_common.cuh", "gram_matvec_sym.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,10 +110,12 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gm_matvec_full.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, p]
         lib.gm_matvec_full.restype = i
-        lib.gm_matvec_sym.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, p]
+        lib.gm_matvec_sym.argtypes = [p, p, p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, p]
         lib.gm_matvec_sym.restype = i
-        lib.gm_smem_bytes.argtypes = [i, i, i]
+        lib.gm_smem_bytes.argtypes = [i, i]
         lib.gm_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_sym_smem_bytes.argtypes = [i, i]
+        lib.gm_sym_smem_bytes.restype = ctypes.c_size_t
         lib.gm_matvec_bwd.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, p]
         lib.gm_matvec_bwd.restype = i
         lib.gm_bwd_smem_bytes.argtypes = [i]

@@ -8,8 +8,9 @@ hand-written CUDA kernels do the work on a CUDA tensor:
 - :func:`gram_cuda` (the tile gram, ``csrc/gram.cu``, replaces ``gram``);
 - :func:`matvec_full_cuda` (full sweep, ``csrc/gram_matvec.cu``, replaces
   ``_matvec_fwd_impl``);
-- :func:`matvec_sym_cuda` (same-set upper-triangle sweep, same file,
-  replaces ``_matvec_fwd_sym_impl``);
+- :func:`matvec_sym_cuda` (same-set upper-triangle sweep,
+  ``csrc/gram_matvec_sym.cu``, replaces ``_matvec_fwd_sym_impl``), over work
+  items that :func:`sym_schedule` builds on the host;
 - :func:`matvec_bwd_cuda` (the backward sweep, ``csrc/gram_matvec_bwd.cu``,
   replaces ``_matvec_bwd_sweep``).
 
@@ -51,7 +52,7 @@ import torch
 
 from gaussian_process_tpu_torch.ops import kernels as _k
 
-# opcodes: keep in sync with csrc/gram_matvec.cu
+# opcodes: keep in sync with csrc/gram_matvec_common.cuh
 OP_ZERO = 0
 OP_RBF = 1
 OP_MATERN12 = 2
@@ -71,8 +72,18 @@ MAX_BWD_INSTR = 16
 MAX_BWD_COEF = 16
 BWD_ROWS = 64  # x1 rows per block of the backward sweep (its partials' count)
 # the symmetric sweep's fixed point: each column's largest sum is scaled to
-# at most 2^61, two bits below int64's range (csrc/gram_matvec.cu)
+# at most 2^61, two bits below int64's range (csrc/gram_matvec_sym.cuh)
 FIXED_POINT_BITS = 61
+# the symmetric sweep's tiles and work items (csrc/gram_matvec_sym.cuh): 64-row
+# tiles; at least SYM_RESIDENT items, the 256-thread blocks that 132 SMs hold
+# at four a SM, and about SYM_ITEMS where the tiles allow, so that equal
+# items leave little of the last wave idle
+SYM_TILE = 64
+SYM_RESIDENT = 132 * 4
+SYM_ITEMS = 8 * SYM_RESIDENT
+SYM_PASS_COLUMNS = 16  # columns of V per pass of the sweep
+# single-leaf trees the sweep evaluates as compiled instantiations
+SYM_COMPILED_LEAVES = (OP_RBF, OP_MATERN12, OP_MATERN32, OP_MATERN52)
 # largest dynamic shared memory a block may use on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 
@@ -481,7 +492,8 @@ def _forward_args(program, coef, x, v, symmetric: bool):
 
     lib = _build.load()
     d = x.shape[1]
-    smem = lib.gm_smem_bytes(int(v.shape[1]), int(d), int(symmetric))
+    r = int(v.shape[1])
+    smem = lib.gm_sym_smem_bytes(_sym_pass(r), d) if symmetric else lib.gm_smem_bytes(r, d)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
     prog = _prog_tensor(program, MAX_INSTR, MAX_COEF, coef.numel(), x.device)
@@ -551,7 +563,7 @@ def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.
 
 def sym_fixed_point_scales(program, coef: torch.Tensor,
                            v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The symmetric sweep's fixed-point scales (``csrc/gram_matvec.cu``):
+    """The symmetric sweep's fixed-point scales (``csrc/gram_matvec_sym.cuh``):
     ``(scale, flag)``, both (r,) on v's device. ``scale[c]`` is 2^e_c
     (float64), the largest power of two with
     k(0) sum_j |v[j, c]| 2^e_c <= 2^FIXED_POINT_BITS, where k(0) is the
@@ -573,28 +585,95 @@ def sym_fixed_point_scales(program, coef: torch.Tensor,
     return torch.exp2(e), (~finite).to(torch.int32)
 
 
+def sym_columns(r: int) -> int:
+    """The columns the symmetric sweep computes for an r-column V: the next
+    power of two at or above r up to 16 (one pass of that width), above 16
+    r rounded up to passes of 16. r = 1, 3, 9, 64 give 1, 4, 16, 64. The
+    wrapper hands the kernel the pass width, :func:`_sym_pass`."""
+    if r <= SYM_PASS_COLUMNS:
+        return 1 << max(0, (r - 1).bit_length())
+    return _round_up(r, SYM_PASS_COLUMNS)
+
+
+def _sym_pass(r: int) -> int:
+    return min(sym_columns(r), SYM_PASS_COLUMNS)
+
+
+def sym_route(program) -> int:
+    """The symmetric sweep's route for a postfix program: the leaf's opcode
+    for a tree of one RBF or Matern leaf (a compiled instantiation), else 0
+    (the interpreter)."""
+    if len(program) == 1 and program[0][0] in SYM_COMPILED_LEAVES:
+        return program[0][0]
+    return 0
+
+
+@functools.lru_cache(maxsize=32)
+def sym_schedule(n: int, items_wanted: int = SYM_ITEMS) -> Tuple[Tuple[int, int, int], ...]:
+    """The symmetric sweep's work items for n rows: ``(ti, j0, j1)``, the
+    tiles (ti, j) with j0 <= j < j1 of row strip ti, walked in ascending j
+    by one block. The p = ceil(n / 64) strips hold the p (p + 1) / 2 upper
+    tiles (ti <= j). Strip i (p - i tiles) is paired with strip p - 1 - i
+    (i + 1 tiles), so every pair holds p + 1 tiles (the middle strip of an
+    odd p, (p + 1) / 2, stands alone). Each pair is cut into k segments of
+    equal length (within one tile), k the least that gives about
+    ``items_wanted`` items in all and never more segments than tiles; a
+    segment that spans the two strips of its pair is two items. Every upper
+    tile lies in exactly one item."""
+    p = -(-n // SYM_TILE)
+    groups = [(i, p - 1 - i) for i in range(p // 2)]
+    if p % 2:
+        groups.append((p // 2,))
+    k_want = max(1, -(-items_wanted // len(groups)))
+    items = []
+    for strips in groups:
+        lengths = [p - s for s in strips]
+        total = sum(lengths)
+        k = min(k_want, total)
+        cuts = [total * q // k for q in range(k + 1)]
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            start = 0
+            for s, length in zip(strips, lengths):
+                a, b = max(lo, start), min(hi, start + length)
+                if a < b:  # tiles [a, b) of the pair fall in strip s
+                    items.append((s, s + a - start, s + b - start))
+                start += length
+    return tuple(items)
+
+
+@functools.lru_cache(maxsize=32)
+def _sym_items_on_device(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`sym_schedule` as an int32 (items, 3) device tensor, copied
+    once per n and device (as :func:`_program_on_device`)."""
+    return torch.tensor(sym_schedule(n), dtype=torch.int32).reshape(-1, 3).to(device)
+
+
 def matvec_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tensor, *,
                     need_l2: bool) -> torch.Tensor:
     """K(x, x) @ v by the upper-triangle CUDA kernel (centred contiguous
     fp32 CUDA tensors xc (n, d), v (n, r); ``program`` and ``coef`` as in
-    :func:`matvec_full_cuda`). The kernel sums in 64-bit fixed point
-    (:func:`sym_fixed_point_scales`), so the same inputs give the same bits
-    on every run. One call is two device launches (the sweep and its
-    finishing pass) and counts one launch."""
+    :func:`matvec_full_cuda`). The route (:func:`sym_route`) and the work
+    items (:func:`sym_schedule`) are chosen here, before the launch; an
+    instantiation that fails to build or launch raises. The kernel sums in
+    64-bit fixed point (:func:`sym_fixed_point_scales`), so the same inputs
+    give the same bits on every run. One call is two device launches (the
+    sweep and its finishing pass) and counts one launch."""
     _check_cuda_f32(coef=coef, x=xc, v=v)
     n, d = xc.shape
     if v.shape[0] != n:
         raise ValueError(f"v has {v.shape[0]} rows, x has {n}")
     r = v.shape[1]
     lib, prog = _forward_args(program, coef, xc, v, True)
+    items = _sym_items_on_device(n, xc.device)
     scale, flag = sym_fixed_point_scales(program, coef, v)
     acc = torch.zeros((n, r), dtype=torch.int64, device=xc.device)
     out = torch.empty((n, r), dtype=torch.float32, device=xc.device)
     with torch.cuda.device(xc.device):
         err = lib.gm_matvec_sym(
             xc.data_ptr(), v.data_ptr(), out.data_ptr(), acc.data_ptr(), flag.data_ptr(),
-            scale.data_ptr(), prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(),
-            n, d, r, int(need_l2), _stream(xc.device),
+            scale.data_ptr(), items.data_ptr(), items.shape[0], prog.data_ptr(), len(program),
+            coef.data_ptr(), coef.numel(), sym_route(program),
+            _sym_pass(r), n, d, r, int(need_l2), _stream(xc.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_sym launch failed: cudaError {err}")

@@ -29,14 +29,36 @@ def _params(p, device):
     return convert.params_from_numpy(p, device=device, dtype=torch.float32)
 
 
-@pytest.mark.parametrize("n,r", [(193, 1), (300, 3), (2500, 16), (700, 130)])
+def _tree(name, device):
+    """The card tests' kernel trees: ``sum`` (RBF + Matern 3/2 + White),
+    which K3 interprets, and single leaves, which K3 runs as compiled
+    instantiations (``kops.sym_route``)."""
+    one = {"sigma": 1.0, "lengthscale": 1.5}
+    if name == "sum":
+        return (ops.Sum(children=(ops.RBF(), ops.Matern(nu=1.5), ops.White())),
+                _params((one, {"sigma": 0.7, "lengthscale": 2.0}, {"amplitude": 0.1}), device))
+    if name == "sum_no_white":
+        return (ops.Sum(children=(ops.RBF(), ops.Matern(nu=1.5))),
+                _params((one, {"sigma": 0.7, "lengthscale": 2.0}), device))
+    nu = {"matern32": 1.5, "matern52": 2.5}.get(name)
+    return (ops.RBF() if nu is None else ops.Matern(nu=nu)), _params(one, device)
+
+
+# (tree, d, n, r): the interpreted sum at d = 3 (the widths 1, 3, 16 and
+# 130, which K3 sweeps in 9 passes of 16 columns); the compiled RBF at the
+# paths' d = 2 and 4 and the widths 1, 3, 9; the compiled Materns at the
+# other x widths (d = 1 pads to 2, 5 to 8, 9 loops) and passes
+MATCH_CASES = [("sum", 3, 193, 1), ("sum", 3, 300, 3), ("sum", 3, 2500, 16), ("sum", 3, 700, 130),
+               *[("rbf", d, n, r) for d in (2, 4) for n, r in ((193, 1), (300, 3), (2500, 9))],
+               ("matern32", 1, 777, 33), ("matern52", 5, 2100, 9), ("matern32", 9, 300, 2)]
+
+
+@pytest.mark.parametrize("tree,d,n,r", MATCH_CASES)
 @pytest.mark.parametrize("symmetric", [True, False])
-def test_kernel_matches_plain_on_card(cuda, n, r, symmetric):
-    rng = np.random.default_rng(n + r)
-    kernel = ops.Sum(children=(ops.RBF(), ops.Matern(nu=1.5), ops.White()))
-    params = _params(({"sigma": 1.0, "lengthscale": 1.5}, {"sigma": 0.7, "lengthscale": 2.0},
-                      {"amplitude": 0.1}), cuda)
-    x = torch.tensor(rng.uniform(-5, 5, (n, 3)), dtype=torch.float32, device=cuda)
+def test_kernel_matches_plain_on_card(cuda, tree, d, n, r, symmetric):
+    rng = np.random.default_rng(n + r + d)
+    kernel, params = _tree(tree, cuda)
+    x = torch.tensor(rng.uniform(-5, 5, (n, d)), dtype=torch.float32, device=cuda)
     v = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float32, device=cuda)
     name = "gram_matvec_sym" if symmetric else "gram_matvec_full"
     before = kops.launch_counts[name]
@@ -44,20 +66,20 @@ def test_kernel_matches_plain_on_card(cuda, n, r, symmetric):
     torch.cuda.synchronize()
     assert kops.launch_counts[name] == before + 1
     want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
-    # fp32 sums over n terms in another order (the symmetric sweep's tile
+    # fp32 sums over n terms in another order (the symmetric sweep's
     # partials are fp32 before its fixed-point sum)
     assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("tree", ["sum_no_white", "rbf"])
 @pytest.mark.parametrize("r", [1, 9, 64])
-def test_sym_sweep_is_bitwise_reproducible_on_card(cuda, r):
-    """K3 sums its tiles' contributions in 64-bit fixed point: two runs on
-    the same inputs give equal bits (fp32 atomics did not), within the
-    plain version's tolerance; one launch counted per call."""
+def test_sym_sweep_is_bitwise_reproducible_on_card(cuda, tree, r):
+    """K3 sums its partials in 64-bit fixed point: two runs on the same
+    inputs give equal bits (fp32 atomics did not), on the interpreted and
+    the compiled route, within the plain version's tolerance; one launch
+    counted per call."""
     rng = np.random.default_rng(20 + r)
-    kernel = ops.Sum(children=(ops.RBF(), ops.Matern(nu=1.5)))
-    params = _params(({"sigma": 1.0, "lengthscale": 1.5}, {"sigma": 0.7, "lengthscale": 2.0}),
-                     cuda)
+    kernel, params = _tree(tree, cuda)
     n = 4100  # 65 tiles, the last ragged
     x = torch.tensor(rng.uniform(-5, 5, (n, 3)), dtype=torch.float32, device=cuda)
     v = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float32, device=cuda)
@@ -71,19 +93,21 @@ def test_sym_sweep_is_bitwise_reproducible_on_card(cuda, r):
     assert float((first - want).abs().max()) <= 2e-4 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("tree", ["rbf", "sum_no_white"])
 @pytest.mark.parametrize("where", ["v", "params"])
-def test_sym_sweep_propagates_nan_on_card(cuda, where):
+def test_sym_sweep_propagates_nan_on_card(cuda, tree, where):
     """A NaN in V makes its column NaN in every row, NaN params make every
-    entry NaN, as an fp32 sum would: the integers cannot carry a NaN, so
-    the kernel flags the column."""
+    entry NaN, as an fp32 sum would, on both routes: the integers cannot
+    carry a NaN, so the kernel flags the column."""
     rng = np.random.default_rng(4)
-    sigma = float("nan") if where == "params" else 1.0
-    params = _params({"sigma": sigma, "lengthscale": 1.5}, cuda)
+    kernel, params = _tree(tree, cuda)
+    if where == "params":
+        params = kops._k.tree_map_params(lambda a: a * float("nan"), params)
     x = torch.tensor(rng.uniform(-5, 5, (700, 3)), dtype=torch.float32, device=cuda)
     v = torch.tensor(rng.standard_normal((700, 9)), dtype=torch.float32, device=cuda)
     if where == "v":
         v[123, 4] = float("nan")
-    out = kops.gram_matvec(ops.RBF(), params, x, None, v, symmetric=True)
+    out = kops.gram_matvec(kernel, params, x, None, v, symmetric=True)
     nan = torch.isnan(out)
     if where == "v":
         rest = torch.cat([out[:, :4], out[:, 5:]], dim=1)

@@ -198,7 +198,7 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
 
 # ------------------------------------------------ the symmetric sweep's fixed point
 #
-# K3 (csrc/gram_matvec.cu) rounds each tile's contribution to an integer
+# K3 (csrc/gram_matvec_sym.cuh) rounds each partial to an integer
 # multiple of 2^-e_c and sums the integers with atomics, so the order of the
 # adds cannot change the bits. Its scale rests on |k(r)| <= k(0) for every
 # tree that ``encode`` builds; the card's own runs are in test_torch_cuda.py.
@@ -255,22 +255,27 @@ def test_encoded_kernels_peak_at_distance_zero(name):
     check()
 
 
-def _emulated_sym_sweep(K, v, scale, order, tile=64):
-    """NumPy int64 emulation of K3 on a dense float64 K: the upper tiles'
-    two contributions (T V_j -> rows i, T^T V_i -> rows j) as fp32 partials,
-    each rounded half-even to round(partial 2^e_c) and added into int64
-    sums in the given order of contributions (NumPy's int64 adds wrap, as
-    the kernel's unsigned atomics do); then sum / 2^e_c in double, to fp32."""
+def _emulated_sym_sweep(K, v, scale, order, items_wanted=kops.SYM_ITEMS, tile=64):
+    """NumPy int64 emulation of K3 on a dense float64 K, in the kernel's
+    order: per work item of ``kops.sym_schedule`` (a segment (ti, j0, j1) of
+    a row strip), out_i's partial summed in fp32 over the segment in
+    ascending j and one tile partial T^T V_i for out_j per off-diagonal tile;
+    each partial rounded half-even to round(partial 2^e_c) and added into
+    int64 sums in the given order of contributions (NumPy's int64 adds wrap,
+    as the kernel's unsigned atomics do); then sum / 2^e_c in double, to
+    fp32."""
     n, r = v.shape
-    p = -(-n // tile)
     parts = []
-    for ti in range(p):
-        for tj in range(ti, p):
-            I, J = slice(ti * tile, (ti + 1) * tile), slice(tj * tile, (tj + 1) * tile)
+    for ti, j0, j1 in kops.sym_schedule(n, items_wanted):
+        I = slice(ti * tile, (ti + 1) * tile)
+        acc = np.zeros((min(n, (ti + 1) * tile) - ti * tile, r), np.float32)
+        for tj in range(j0, j1):
+            J = slice(tj * tile, (tj + 1) * tile)
             T = K[I, J]
-            parts.append((I, (T @ v[J]).astype(np.float32)))
+            acc = (acc + (T @ v[J]).astype(np.float32)).astype(np.float32)
             if ti != tj:
                 parts.append((J, (T.T @ v[I]).astype(np.float32)))
+        parts.append((I, acc))
     acc = np.zeros((n, r), np.int64)
     for idx in order(len(parts)):
         rows, part = parts[idx]
@@ -278,13 +283,10 @@ def _emulated_sym_sweep(K, v, scale, order, tile=64):
     return (acc.astype(np.float64) / scale).astype(np.float32)
 
 
-@pytest.mark.parametrize("r", [1, 9, 64])
-def test_sym_fixed_point_sum_is_order_free(rng, r):
-    """The scale helper and the fixed-point sum: the same bits in every
-    order of the contributions, within 1e-6 relative (to the largest
-    entry) of float64 K @ V; each scale a power of two with
-    k(0) sum_j |V[j, c]| scale <= 2^61 < twice that."""
-    n = 300  # five 64-row tiles, the last ragged
+def _fixed_point_case(rng, r, n=300):
+    """RBF + Matern 3/2 in float64 at n ragged points (300: five 64-row
+    tiles, the last ragged), V with columns of unlike magnitude, and the
+    scales of its fp32 copy."""
     kernel, params = tops.RBF() + tops.Matern(nu=1.5), (
         {"sigma": 1.3, "lengthscale": 0.8}, {"sigma": 0.6, "lengthscale": 2.0})
     params = _f64(params)
@@ -295,19 +297,104 @@ def test_sym_fixed_point_sum_is_order_free(rng, r):
     program, coefs = kops.encode(kernel, params)
     coef = kops.coef_vector(coefs, dtype=torch.float32, device="cpu")
     scale, flag = kops.sym_fixed_point_scales(program, coef, torch.from_numpy(v).float())
-    scale = scale.numpy()
+    return K, v, scale.numpy(), flag
+
+
+def _assert_order_free(K, v, scale, **kw):
+    """The same bits in every order of the contributions, within 1e-6
+    relative (to the largest entry) of float64 K @ V."""
+    orders = [lambda m: range(m), lambda m: range(m - 1, -1, -1)] + [
+        (lambda m, g=np.random.default_rng(s): g.permutation(m)) for s in range(3)]
+    outs = [_emulated_sym_sweep(K, v, scale, order, **kw) for order in orders]
+    for out in outs[1:]:
+        assert np.array_equal(out.view(np.int32), outs[0].view(np.int32))
+    want = K @ v
+    assert float(np.max(np.abs(outs[0] - want))) <= 1e-6 * float(np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("r", [1, 3, 9, 64])
+def test_sym_fixed_point_sum_is_order_free(rng, r):
+    """The scale helper and the fixed-point sum over the schedule K3 runs
+    at this n: order-free bits within 1e-6 of float64; each scale a power of
+    two with k(0) sum_j |V[j, c]| scale <= 2^61 < twice that."""
+    K, v, scale, flag = _fixed_point_case(rng, r)
     assert flag.dtype == torch.int32 and not flag.any()
     mant, _ = np.frexp(scale)
     assert np.all(mant == 0.5)
     bound = (1.3 ** 2 + 0.6 ** 2) * np.abs(v).sum(axis=0) * scale
     assert np.all(bound <= 2.0 ** 61 * (1 + 1e-6)) and np.all(bound > 2.0 ** 60 * (1 - 1e-6))
-    orders = [lambda m: range(m), lambda m: range(m - 1, -1, -1)] + [
-        (lambda m, g=np.random.default_rng(s): g.permutation(m)) for s in range(3)]
-    outs = [_emulated_sym_sweep(K, v, scale, order) for order in orders]
-    for out in outs[1:]:
-        assert np.array_equal(out.view(np.int32), outs[0].view(np.int32))
-    want = K @ v
-    assert float(np.max(np.abs(outs[0] - want))) <= 1e-6 * float(np.max(np.abs(want)))
+    _assert_order_free(K, v, scale)
+
+
+@pytest.mark.parametrize("r", [1, 3, 9])
+def test_sym_fixed_point_sum_over_strip_segments(rng, r):
+    """The same over segments that walk several tiles (three items wanted:
+    each strip pair is one segment, split where it crosses strips), so
+    out_i's partials are fp32 sums of up to five tile products."""
+    K, v, scale, _ = _fixed_point_case(rng, r)
+    items = kops.sym_schedule(300, 3)
+    assert max(j1 - j0 for _, j0, j1 in items) == 5
+    _assert_order_free(K, v, scale, items_wanted=3)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 64, 65, 1600])
+def test_sym_schedule_covers_every_upper_tile_once(p):
+    """The host-built work items of K3 (the exact schedule the kernel
+    walks): each item a segment j0 < j1 <= p of strip ti, j0 >= ti, and
+    together every tile (ti, j >= ti) once, for a ragged n."""
+    n = 64 * p - 17 if p > 1 else 5
+    items = kops.sym_schedule(n)
+    cover = np.zeros((p, p), np.int64)
+    for ti, j0, j1 in items:
+        assert 0 <= ti <= j0 < j1 <= p
+        cover[ti, j0:j1] += 1
+    np.testing.assert_array_equal(cover, np.triu(np.ones((p, p), np.int64)))
+
+
+@pytest.mark.parametrize("n", [2048, 2049, 4096, 40000, 102400, 409600, 1500000])
+def test_sym_schedule_is_balanced_and_fills_the_card(n):
+    """At every n the dispatch rule sends to K3 (n >= 2048) there are at
+    least as many items as the resident blocks the schedule assumes (four
+    256-thread blocks on each of 132 SMs); strip pairs are cut into equal
+    segments, so no item is longer than a pair's share, and the items
+    number about SYM_ITEMS where the tiles allow."""
+    p = -(-n // 64)
+    tiles = p * (p + 1) // 2
+    items = kops.sym_schedule(n)
+    lengths = np.array([j1 - j0 for _, j0, j1 in items])
+    assert lengths.sum() == tiles
+    assert len(items) >= min(tiles, kops.SYM_RESIDENT) and len(items) >= kops.SYM_RESIDENT
+    pairs = -(-p // 2)
+    k = min(p + 1, -(-kops.SYM_ITEMS // pairs))
+    assert lengths.max() <= -(-(p + 1) // k)
+    # a pair's segments differ by at most one tile; splits at strip ends
+    # add at most one short item per pair
+    assert len(items) <= pairs * (k + 1)
+    assert len(items) >= min(kops.SYM_ITEMS, tiles)
+
+
+@pytest.mark.parametrize("r,width", [(1, 1), (2, 2), (3, 4), (9, 16), (16, 16), (17, 32),
+                                     (33, 48), (64, 64), (130, 144)])
+def test_sym_column_width_follows_r(r, width):
+    """K3 pads V at most to the next power of two: one pass of 1, 2, 4, 8
+    or 16 columns, then passes of 16."""
+    assert kops.sym_columns(r) == width
+
+
+def test_sym_route_is_chosen_on_the_host():
+    """One RBF or Matern leaf takes its compiled instantiation (the route is
+    its opcode); any other tree the interpreter (0)."""
+    one = {"sigma": torch.tensor(1.0), "lengthscale": torch.tensor(1.0)}
+    for kernel, route in [(tops.RBF(), kops.OP_RBF), (tops.Matern(nu=0.5), kops.OP_MATERN12),
+                          (tops.Matern(nu=1.5), kops.OP_MATERN32),
+                          (tops.Matern(nu=2.5), kops.OP_MATERN52)]:
+        assert kops.sym_route(kops.encode(kernel, one)[0]) == route
+    for kernel, params in [(tops.RBF() + tops.RBF(), (one, one)),
+                           (tops.Scaled(base=tops.RBF()), {"amplitude": torch.tensor(2.0),
+                                                           "base": one}),
+                           (tops.Periodic(), {"period": torch.tensor(1.0),
+                                              "lengthscale": torch.tensor(1.0)})]:
+        assert kops.sym_route(kops.encode(kernel, params)[0]) == 0
 
 
 @pytest.mark.parametrize("case", ["zero_column", "nan_in_v", "inf_in_v", "nan_params"])
