@@ -12,12 +12,16 @@ one JSON line:
 1. device: the card's name and power limit, toolchain versions, TF32 flags;
 2. build: compiles ``gaussian_process_tpu_torch/csrc`` with ``nvcc``;
 3. kernels: each hand-written CUDA kernel against its plain PyTorch version
-   on the card (fp32, max abs error <= 2e-4 * max |plain|), and both timed
-   with CUDA events at the main path's shapes (n = 102400; K3 at r = 9, 1, 3
-   and 16, and run twice at r = 9, where its fixed-point sum must give equal
-   bits, with its device time by kernel; K3 at the classifiers' d = 2,
-   RBF(1, 1), r = 1 and 3; K3 against K2 at r in {9, 16, 33, 64} and
-   n in {4096, 102400}, recorded for the sweep rule); the tile gram
+   on the card (fp32, max abs error <= 2e-4 * max |plain|; K2 under both
+   ``dot_mode``s, up to r = 512), and both timed with CUDA events at the
+   main path's shapes (n = 102400; K2 at r = 65, 72 and 512, run twice
+   with equal bits, within 2e-5 x max |float64| of float64 (3xTF32 is
+   near fp32; a 1xTF32 product, the plain version with TF32 matmuls,
+   recorded beside it, is not); K3 at r = 9, 1, 3 and 16, and run twice
+   at r = 9, where its fixed-point sum must give equal bits, with its
+   device time by kernel; K3 at the classifiers' d = 2, RBF(1, 1), r = 1
+   and 3; K3 against K2 at r in {9, 16, 33, 64} and n in {4096, 102400},
+   recorded for the sweep rule); the tile gram
    (K1) also within 1e-4 x max(1, max |plain|) absolute, timed at
    n = 8192 and 102400 x {512, 2048}; its autograd wrapper (K5): gradients
    within 1e-3 of the plain gram's in float64;
@@ -82,19 +86,24 @@ one JSON line:
 Then a line ``{"kernels": [...]}``: per kernel its source, the TPU kernel it
 replaces, its launches on the main paths, its error against its plain
 version, its time, the plain version's, its bound (the larger of its fp32
-operations at 67 TFLOP/s and its bytes at 3.35 TB/s, from this run's shapes)
-and, where one PyTorch call computes the same function, that call's time.
+operations at 67 TFLOP/s and its bytes at 3.35 TB/s, from this run's shapes;
+for K2 its TF32 products at 495 TFLOP/s against its entries at 67) and,
+where one PyTorch call computes the same function, that call's time.
 Last, ``{"ok": true, "device": ...}``. Any failure raises and exits
-non-zero; so does a machine without CUDA.
+non-zero; so does a machine without CUDA. Each phase draws its inputs from
+its own generator, seeded by its place in the run, so a phase that draws
+more leaves the others' inputs as they were.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -109,6 +118,9 @@ from gaussian_process_tpu_torch.ops.cuda import kernel_ops as kops
 
 BOOK = [66, 67, 2.4, 90, 1.3, 0.66, 1.2, 0.78, 0.18, 1.6, 0.19]
 KERNEL_RTOL = 2e-4  # fp32 kernel vs plain: max abs err / max |plain|
+# K2 vs float64 at the paths' shapes: max abs err / max |float64|, between
+# 3xTF32's few 1e-6 and a 1xTF32 product's error
+K2_F64_RTOL = 2e-5
 GATE_MEAN, GATE_LML, GATE_VAR = 5e-4, 3e-4, 2e-3
 N_EXACT, M_EXACT = 8192, 2048  # the exact path's training and test points
 N_BIG, N_PARITY, D = 102400, 4096, 4  # the matrix-free path's sizes
@@ -117,18 +129,24 @@ N_BIG, N_PARITY, D = 102400, 4096, 4  # the matrix-free path's sizes
 CG_RUNS = ((8, "gram_matvec_sym"), (64, "gram_matvec_full"))
 MAIN_R = {name: m + 1 for m, name in CG_RUNS}
 # other widths, checked and timed too: K3 at r = 1 (the binary Newton fit's
-# width), r = 3 (the multi-class fit's) and 16 (one full pass), K2 at 72
+# width), r = 3 (the multi-class fit's) and 16 (one full pass), K2 at 72 and
+# at 512 (the binary prediction's chunk)
 EXTRA_R = (("gram_matvec_sym", 1), ("gram_matvec_sym", 3), ("gram_matvec_sym", 16),
-           ("gram_matvec_full", 72))
+           ("gram_matvec_full", 72), ("gram_matvec_full", 512))
+# the widths phase 3 checks at n in {4096, 3001}; K3 only up to 64
+CHECK_R = (1, 9, 16, 65, 72, 512)
 # K3 at the classifiers' shape, d = 2 and RBF(1, 1): the Newton fits' widths
 CLS_R = (1, 3)
+# K2's instantiations at r = 65 (9 tiles of 8 columns) and r = 512 (passes
+# of 16), compiled RBF at d <= 4: their instruction mix is reported
+K2_SASS = ("matvec_full_tc_kernel<9,4,1>", "matvec_full_tc_kernel<16,4,1>")
 # K3 against K2 on the same inputs, recorded for the sweep rule's gate
 CROSS_R, CROSS_N = (9, 16, 33, 64), (4096, 102400)
 SOURCES = {
     "gram": "gaussian_process_tpu_torch/csrc/gram.cu",
     "gram_ad": "gaussian_process_tpu_torch/csrc/gram.cu",
     "gram_matvec_sym": "gaussian_process_tpu_torch/csrc/gram_matvec_sym.cu",
-    "gram_matvec_full": "gaussian_process_tpu_torch/csrc/gram_matvec.cu",
+    "gram_matvec_full": "gaussian_process_tpu_torch/csrc/gram_matvec_full.cuh",
     "gram_matvec_bwd": "gaussian_process_tpu_torch/csrc/gram_matvec_bwd.cu",
     "chol_inv_panel": "gaussian_process_tpu_torch/csrc/chol_panel.cu",
 }
@@ -161,8 +179,9 @@ GATE_PROB, GATE_LABELS = 5e-3, 0.999
 N_CHOL, BLOCK_CHOL, NOISE_CHOL = 10240, 1024, 5e-4
 CHOL_PANELS = (1024, 96, 640)  # K6's checks besides the path's panel: b = 96 is ragged
 CHOL_PANEL_RTOL = 1e-5  # K6 vs float64 (tests/test_blocked.py:166-167), where the plain meets it
-# the H100 SXM's published peaks: fp32 outside the tensor cores, and HBM
-FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+# the H100 SXM's published peaks: fp32 outside the tensor cores, dense TF32
+# on them, and HBM
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 # launches of each kernel on the main paths (each read just after its run)
 PATH_LAUNCHES = {name: 0 for name in kops.launch_counts}
 
@@ -214,7 +233,7 @@ def phase_device() -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``matvec_full_kernel<8>`` from nvcc's mangled name of a kernel in a
+    """``matvec_full_tc_kernel<9,4,1>`` from nvcc's mangled name of a kernel in a
     source's anonymous namespace (``..._cu_<8 hex digits><length><name>``,
     then the template arguments); the mangled name if it is not one."""
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
@@ -246,12 +265,34 @@ def _ptxas_usage(log: str) -> list:
     return rows
 
 
+def _sass_mix(lib_path: str, kernels) -> dict:
+    """Per kernel instantiation named in ``kernels``: its instructions in
+    ``cuobjdump -sass`` of the built library, counted by opcode (the 12
+    most frequent) and in all."""
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    ops_of, name = {}, None
+    for line in text.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            name = _kernel_name(func.group(1))
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if ins and name in kernels:
+            ops_of.setdefault(name, []).append(ins.group(2))
+    return {k: {"total": len(v), **dict(collections.Counter(v).most_common(12))}
+            for k, v in ops_of.items()}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
+    lib_path = str(_build.build())
     _build.load()
     seconds = time.perf_counter() - t0
     emit("build", seconds=seconds, nvcc_seconds=_build.build_info.get("seconds"),
-         ptxas=_ptxas_usage(_build.build_info.get("ptxas", "")))
+         ptxas=_ptxas_usage(_build.build_info.get("ptxas", "")),
+         k2_sass_mix=_sass_mix(lib_path, K2_SASS))
 
 
 def _case_kernels(device):
@@ -275,9 +316,9 @@ def _max_err(got: torch.Tensor, want: torch.Tensor):
     return err, scale
 
 
-def _run(name: str, kernel, params, x, v):
+def _run(name: str, kernel, params, x, v, dot_mode: str = "split3"):
     sym = name == "gram_matvec_sym"
-    return kops.gram_matvec(kernel, params, x, None, v, symmetric=sym)
+    return kops.gram_matvec(kernel, params, x, None, v, symmetric=sym, dot_mode=dot_mode)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -295,31 +336,34 @@ def _time_ms(fn, reps: int) -> float:
 def phase_kernels(device, gen: np.random.Generator) -> dict:
     cases = _case_kernels(device)
     checked = []
+    sweeps = [("gram_matvec_sym", "split3"), *[("gram_matvec_full", m) for m in kops.DOT_MODES]]
     for n in (4096, 3001):
         x = torch.tensor(gen.uniform(-5, 5, (n, D)), dtype=torch.float32, device=device)
-        for r in (1, 9, 16, 65, 72):
+        for r in CHECK_R:
             v = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
-            for name in ("gram_matvec_sym", "gram_matvec_full"):
+            for name, mode in sweeps:
                 if name == "gram_matvec_sym" and r > 64:
                     continue
                 for family, (kernel, params) in cases.items():
                     before = kops.launch_counts[name]
-                    got = _run(name, kernel, params, x, v)
+                    got = _run(name, kernel, params, x, v, mode)
                     torch.cuda.synchronize()
                     require(kops.launch_counts[name] == before + 1, f"{name} launched")
                     want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
                     err, scale = _max_err(got, want)
-                    checked.append([name, family, n, r, err, scale])
+                    checked.append([name, mode, family, n, r, err, scale])
         # the full sweep with a second point set (x2 given)
         x2 = torch.tensor(gen.uniform(-5, 5, (n // 2 + 7, D)), dtype=torch.float32,
                           device=device)
         v2 = torch.tensor(gen.standard_normal((x2.shape[0], 9)), dtype=torch.float32,
                           device=device)
         kernel, params = cases["matern52"]
-        got = kops.gram_matvec(kernel, params, x, x2, v2)
-        err, scale = _max_err(got, kops.gram_matvec_reference(kernel, params, x, x2, v2))
-        checked.append(["gram_matvec_full", "matern52_cross", n, 9, err, scale])
+        for mode in kops.DOT_MODES:
+            got = kops.gram_matvec(kernel, params, x, x2, v2, dot_mode=mode)
+            err, scale = _max_err(got, kops.gram_matvec_reference(kernel, params, x, x2, v2))
+            checked.append(["gram_matvec_full", mode, "matern52_cross", n, 9, err, scale])
     emit("kernels_vs_plain", tolerance=f"max abs err <= {KERNEL_RTOL} x max|plain|",
+         columns=["kernel", "dot_mode", "family", "n", "r", "max_abs_err", "max_abs_plain"],
          cases=checked)
 
     # at the main path's shapes: n = 102400, r = 9 (K3) and r = 65 (K2), as
@@ -378,19 +422,59 @@ def phase_kernels(device, gen: np.random.Generator) -> dict:
 
 def _matvec_timed(name, kernel, params, x, v):
     """A forward sweep at the paths' shapes against its plain version, then
-    both timed in turns (plain, kernel, kernel, plain): (row, output)."""
+    both timed in turns (plain, kernel, kernel, plain): (row, output). K2 is
+    also run twice for equal bits and held against float64
+    (``rel_err_f64`` <= K2_F64_RTOL), with the plain version's 1xTF32
+    product (:func:`_tf32_product`) against float64 recorded beside it."""
     n, d = x.shape
     r = v.shape[1]
     got = _run(name, kernel, params, x, v)
     want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
     err, scale = _max_err(got, want)
     plain = lambda: kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
-    row = _in_turns(lambda: _run(name, kernel, params, x, v), plain, 5, 3)
-    # K3 evaluates the upper triangle once and applies each entry twice
-    evals = n * (n + 1) / 2 if name == "gram_matvec_sym" else n ** 2
-    row.update(kernel=name, n=n, d=d, r=r, max_abs_err=err, max_abs_plain=scale,
-               **_bound(evals * _entry_flops(d) + n ** 2 * 2 * r, (n * d + 2 * n * r) * 4))
+    run = lambda: _run(name, kernel, params, x, v)
+    if name == "gram_matvec_sym":
+        row = _in_turns(run, plain, 5, 3)
+        # K3 evaluates the upper triangle once and applies each entry twice
+        row.update(_bound(n * (n + 1) / 2 * _entry_flops(d) + n ** 2 * 2 * r,
+                          (n * d + 2 * n * r) * 4))
+    else:
+        again = run()
+        row = _in_turns(run, plain, *((2, 2) if r > 128 else (5, 3)))
+        # against float64, relative to its largest entry
+        p64 = tk.tree_map_params(lambda a: a.double(), params)
+        want64 = kops.gram_matvec_reference(kernel, p64, x.double(), None, v.double(),
+                                            same=True)
+        scale64 = float(torch.max(torch.abs(want64)))
+        rel64 = lambda out: float(torch.max(torch.abs(out.double() - want64))) / scale64
+        row.update(rel_err_f64=rel64(got),
+                   tf32_control_rel_err_f64=rel64(_tf32_product(kernel, params, x, v)),
+                   bitwise_equal=bool(torch.equal(got, again)), columns=kops.full_columns(r))
+        del want64
+        require(row["bitwise_equal"], f"K2 twice at n = {n}, r = {r}: equal bits")
+        require(row["rel_err_f64"] <= K2_F64_RTOL,
+                f"K2 at n = {n}, r = {r}: {row['rel_err_f64']:.3e} of max |float64| "
+                f"within {K2_F64_RTOL}")
+        row.update(_bound_k2(n, n, d, r))
+    row.update(kernel=name, n=n, d=d, r=r, max_abs_err=err, max_abs_plain=scale)
     return row, got
+
+
+def _tf32_product(kernel, params, x, v, row_chunk: int = 4096) -> torch.Tensor:
+    """The plain version K(x, x) @ v with its output product in 1xTF32
+    (cuBLAS with TF32 matmuls; the entries in fp32, as the plain version
+    forms them): the control that K2's float64 gate must tell apart."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    out = torch.empty((x.shape[0], v.shape[1]), dtype=torch.float32, device=x.device)
+    try:
+        for i in range(0, x.shape[0], row_chunk):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            K = tk.gram(kernel, params, x[i:i + row_chunk], x)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            out[i:i + row_chunk] = K @ v
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    return out
 
 
 def _gram_err(got: torch.Tensor, want: torch.Tensor):
@@ -1039,6 +1123,23 @@ def _bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def _bound_k2(n: int, m: int, d: int, r: int) -> dict:
+    """K2's bound: its 3 x 2 n m r_pad TF32 MMA operations (r_pad,
+    r rounded up to the MMA's 8 columns) at the dense TF32 rate, against
+    its n m entries on the fp32 pipe (two units that run at once, so the
+    larger), against its bytes at the HBM rate; ``ops_unit`` says which
+    unit bounds the operations."""
+    r_pad = -(-r // 8) * 8
+    mma_ms = 3 * 2 * n * m * r_pad / TF32_FLOPS * 1e3
+    entry_ms = n * m * _entry_flops(d) / FP32_FLOPS * 1e3
+    bytes_ms = (n * d + m * d + m * r + n * r) * 4 / HBM_BYTES * 1e3
+    ops_ms = max(mma_ms, entry_ms)
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_unit": "tf32 tensor cores" if mma_ms >= entry_ms else "fp32 pipe",
+            "tf32_ms": mma_ms, "entry_ms": entry_ms}
+
+
 def _chol_data(n: int):
     """bench.py's _make_data: x uniform in [-5, 5]^4, y = sin(0.9 sum x) +
     0.02 noise, from its own seed 0."""
@@ -1229,19 +1330,21 @@ def phase_chol_blocked(device) -> None:
 def main() -> int:
     phase_device()
     device = torch.device("cuda", 0)
-    gen = np.random.default_rng(0)
+    # each phase's own generator, so that one that draws more leaves the
+    # others' inputs as they were
+    gen = lambda phase: np.random.default_rng([0, phase])  # noqa: E731
     phase_build()
-    timings = phase_kernels(device, gen)
-    timings.update(phase_kernels_gram(device, gen))
-    phase_exact(device, gen)
-    phase_matrix_free(device, gen)
-    timings["gram_matvec_bwd"] = phase_kernels_bwd(device, gen)
-    phase_train_exact(device, gen)
-    phase_train_large(device, gen)
-    phase_classify_dense(device, gen)
-    phase_classify_large(device, gen)
-    phase_estimator_numpy(device, gen)
-    timings["chol_inv_panel"] = phase_kernels_chol(device, gen)
+    timings = phase_kernels(device, gen(3))
+    timings.update(phase_kernels_gram(device, gen(4)))
+    phase_exact(device, gen(5))
+    phase_matrix_free(device, gen(6))
+    timings["gram_matvec_bwd"] = phase_kernels_bwd(device, gen(7))
+    phase_train_exact(device, gen(8))
+    phase_train_large(device, gen(9))
+    phase_classify_dense(device, gen(10))
+    phase_classify_large(device, gen(11))
+    phase_estimator_numpy(device, gen(12))
+    timings["chol_inv_panel"] = phase_kernels_chol(device, gen(13))
     phase_chol_blocked(device)
     emit("path_launches", launches=PATH_LAUNCHES)
     for name in timings:

@@ -19,10 +19,11 @@ class SolveConfig:
     sampling_jitter: float = 1e-6  # posterior-sample jitter [ref: GP_regression.py:154]
     max_chol_attempts: int = 8  # jitter-escalation retries on non-PSD K
     jitter_growth: float = 10.0
-    # Conjugate-gradient settings (large-n path). The tolerance does not
-    # change the fused matvec: its CUDA kernels form the output product
-    # with plain fp32 FMAs at every tolerance (the JAX package's dot_mode
-    # has no counterpart here).
+    # Conjugate-gradient settings (large-n path). As in the JAX package, a
+    # tolerance below 1e-5 hands the fused matvec dot_mode "highest", 1e-5
+    # and above "split3" (gp.regression.cg_dot_mode). On the card both
+    # modes take the same products (ops.cuda.kernel_ops.gram_matvec): the
+    # full sweep's 3xTF32 is more precise than fp32 FMAs.
     cg_tol: float = 1e-6
     cg_max_iters: int = 1000
     cg_precondition: bool = True

@@ -1,8 +1,9 @@
-// Shared by the forward sweeps (gram_matvec.cu) and the backward sweep
+// Shared by the tile gram (gram.cu), the forward sweeps (K2,
+// gram_matvec_full.cuh; K3, gram_matvec_sym.cuh) and the backward sweep
 // (gram_matvec_bwd.cu): the postfix program's opcodes, the per-entry leaf
-// arithmetic and its hand-written derivatives, and the tile loaders. Keeping
-// one copy means the backward differentiates exactly the function that the
-// forward evaluates.
+// arithmetic and its hand-written derivatives, the compiled leaves of the
+// forward sweeps, and the tile loaders. Keeping one copy means the backward
+// differentiates exactly the function that the forward evaluates.
 
 #pragma once
 
@@ -189,6 +190,75 @@ __device__ __forceinline__ float eval_tree(const int* prog, const float* coef, i
     }
   }
   return st[0];
+}
+
+// ------------------------------------------------------------ compiled leaves
+//
+// A tree of one RBF or Matern leaf can be an instantiation of a sweep (LEAF =
+// its opcode; LEAF = 0 is the interpreter above). x is prescaled by
+// leaf_x_scale, so that the squared distance already carries the leaf's
+// coefficient, and the amplitude c0 is applied to each partial sum, not to
+// each entry. K2 (gram_matvec_full.cuh) and K3 (gram_matvec_sym.cuh) share
+// this code.
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^t by the SFU alone (ex2.approx.ftz: about 2 ulp; results below 2^-126
+// flush to zero, far below what a kernel entry contributes).
+__device__ __forceinline__ float fast_exp2(float t) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(t));
+  return y;
+}
+
+// One kernel entry from its squared distance. LEAF = 0: the postfix
+// interpreter, the whole value. Else the leaf of that opcode without its
+// amplitude c0, which the sweep applies to each partial sum, and with x
+// prescaled by leaf_x_scale, so that sq already carries the leaf's c1: RBF
+// is c0 2^-sq, a Matern's s = c1 l2 is sqrt(sq).
+template <int LEAF>
+__device__ __forceinline__ float leaf_entry(float sq, const int* prog, const float* coef,
+                                            int n_instr, int need_l2) {
+  if constexpr (LEAF == 0) {
+    return eval_tree(prog, coef, n_instr, sq, need_l2 ? sqrtf(sq) : 0.0f);
+  } else if constexpr (LEAF == OP_RBF) {
+    return fast_exp2(-sq);
+  } else {
+    static_assert(LEAF == OP_MATERN12 || LEAF == OP_MATERN32 || LEAF == OP_MATERN52);
+    const float s = sqrtf(sq);
+    const float e = fast_exp2(s * -LOG2E);
+    if constexpr (LEAF == OP_MATERN12) {
+      return e;
+    } else if constexpr (LEAF == OP_MATERN32) {
+      return (1.0f + s) * e;
+    } else {
+      return (1.0f + s + s * s * (1.0f / 3.0f)) * e;
+    }
+  }
+}
+
+// The factor a compiled leaf's x is scaled by: RBF c0 exp(c1 sq), c1 <= 0,
+// is c0 2^-(sq') for x' = sqrt(-c1 log2 e) x; a Matern's c1 l2 is the
+// distance of x' = c1 x. 1 for the interpreter.
+template <int LEAF>
+__device__ __forceinline__ float leaf_x_scale(float c1) {
+  if constexpr (LEAF == 0) return 1.0f;
+  if constexpr (LEAF == OP_RBF) return sqrtf(-c1 * LOG2E);
+  return c1;
+}
+
+// A compiled leaf's amplitude and x scale from its coefficients (the
+// program's one instruction points at them); 1 and 1 for the interpreter.
+template <int LEAF>
+__device__ __forceinline__ void leaf_scales(const int* prog, const float* coef, float& amp,
+                                            float& xs) {
+  amp = 1.0f;
+  xs = 1.0f;
+  if constexpr (LEAF != 0) {
+    const float* c = coef + prog[1];
+    amp = c[0];
+    xs = leaf_x_scale<LEAF>(c[1]);
+  }
 }
 
 __device__ __forceinline__ void load_program(float* s_coef, int* s_prog, const int* prog,

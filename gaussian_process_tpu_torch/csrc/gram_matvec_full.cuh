@@ -1,0 +1,356 @@
+// K2: the full sweep out = K(x1, x2) @ V on the tensor cores, for NVIDIA
+// Hopper (sm_90a). Replaces _matvec_fwd_impl of the JAX package's
+// ops/pallas/kernel_ops.py (:303), whose output product runs under
+// dot_mode="split3" (a 3-pass split product on the MXU) or "highest" (full
+// fp32); its Hopper counterpart, 3xTF32, serves both modes (gram_matvec.cu
+// says why). The kernel template lives here so that its instantiations can
+// be compiled in several sources at once:
+// gram_matvec.cu (the interpreted trees and RBF, the staging pass and the
+// launcher) and gram_matvec_full_matern.cu (the Matern family).
+//
+// What bounds it on this card. At n = m = 102400 and r columns (r_pad, r
+// rounded up to a multiple of 8) the product is 3 x 2 n^2 r_pad TF32 MMA
+// operations at 495 TFLOP/s dense: 9.2 ms at r = 65 (r_pad 72), 65 ms at
+// r = 512. Against it, n^2 ~ 1.05e10 entry evaluations on the fp32 pipe and
+// the SFU (about 15 operations an entry at d = 4: 2.4 ms at 67 TFLOP/s).
+// x and V are a few hundred MB at most and are read from L2.
+//
+// What the design does about it:
+//   * Entries go straight into A fragments. The product is
+//     mma.sync.m16n8k8 with TF32 inputs and fp32 accumulation. A warp owns
+//     32 output rows (two 16-row MMA tiles); each thread evaluates exactly
+//     the entries its A fragments hold (rows lane / 4 and lane / 4 + 8 of
+//     each 16, k-columns lane % 4 and lane % 4 + 4 of each 8-deep k-step)
+//     into registers, so the K tile never touches shared memory and no
+//     barrier guards it. The thread's x1 rows stay in registers for the
+//     whole sweep.
+//   * 3xTF32. Each entry and each V value is split into hi = cvt.rna.tf32(a)
+//     and lo = cvt.rna.tf32(a - hi); lo * hi and hi * lo are accumulated
+//     first, then hi * hi (CUTLASS's order), and lo * lo is dropped: about
+//     fp32's precision at a third of the tensor cores' TF32 rate.
+//   * Sums that do not drift. The MMA rounds its add into C toward zero, so
+//     a C carried over the sweep drifts by about one ulp an add, past the
+//     2e-4 x max |plain| gate at n = 102400. Each pair of k-steps goes
+//     into a zeroed partial (six MMAs a tile), and a rounded fp32 add takes
+//     it into the sum, which leaves the sweep more precise than fp32 FMAs.
+//   * V is split once, by the staging pass (full_stage_kernel, one launch
+//     before the sweep), into a global array already in the B-fragment
+//     order: per pass, k-step, 8-column tile and lane one float4
+//     (hi(k), hi(k + 4), lo(k), lo(k + 4)). A lane reads its fragment with
+//     one conflict-free 16-byte shared load. The same pass prescales x2 and
+//     pads it with zero rows and coordinates.
+//   * Staging. Each block copies the x2 and V fragments of the next stage
+//     (64 x2 rows) with cp.async, double-buffered, while its warps run this
+//     stage's MMAs: one block barrier a stage.
+//   * Column passes follow r. A pass is NT tiles of 8 columns, NT one of
+//     the compiled counts (1-6, 8, 9, 12, 16; kernel_ops.full_passes): r = 65
+//     computes 72 columns, r = 9 16, r = 1 8. Wider V is cut into the fewest
+//     passes of at most 128 columns, so r = 512 is 4 passes (each entry is
+//     evaluated 4 times): 256-column passes at 16 rows a warp ran slower,
+//     their 128 accumulators a thread spilling at 255 registers. Every tile
+//     of an instantiation is computed, with no branch, so the compiler
+//     interleaves the tiles' MMAs.
+//   * 128 rows a block: 8 warps, 4 row groups x 2 halves of each stage's
+//     k-steps, summed through shared memory at the end in a fixed order:
+//     every output row is written once, with no atomics, so two runs give
+//     equal bits.
+//   * Compiled leaves, as in K3 (gram_matvec_common.cuh): one RBF or Matern
+//     leaf is an instantiation with prescaled x (RBF: one ex2 an entry) and
+//     the amplitude applied to the sums; x at width D = 4 in registers for
+//     d <= 4, else read from shared memory in a loop (D = 0). Every other
+//     tree takes the postfix interpreter (LEAF = 0, D = 0). The wrapper picks
+//     the route before the launch.
+//   * Ragged edges: the staging pass zero-pads V rows past m and columns past
+//     r, and gives x2 rows past m zero coordinates, so their entries are
+//     finite and meet zero V. A NaN in V or in the coefficients reaches the
+//     output as a product with it would.
+
+#pragma once
+
+#include "gram_matvec_common.cuh"
+
+// What one launch of the sweep reads and writes (device pointers).
+struct FullArgs {
+  const float* x1;   // n x d, centred
+  const float* x2s;  // m_pad x dx: x2 prescaled, zero past m and past d
+  const float* vf;   // passes x (m_pad / 8) x nt x 32 x 4: V's B fragments, hi and lo
+  float* out;        // n x r
+  const int* prog;
+  int n_instr;
+  const float* coef;
+  int n_coef;
+  int n, m_pad, d, dx, r, nt, need_l2;
+};
+
+namespace {
+
+constexpr int FULL_ROWS = 128;   // x1 rows of a block
+constexpr int FULL_WARPS = THREADS / 32;
+constexpr int FULL_STAGE = 64;   // x2 rows of a stage: 8 k-steps, 4 a k-half
+constexpr int FULL_M_ALIGN = FULL_STAGE;  // x2 rows are padded to whole stages
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// a rounded to TF32 (10 mantissa bits), ties away from zero
+__device__ __forceinline__ unsigned tf32_rna(float a) {
+  unsigned t;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(t) : "f"(a));
+  return t;
+}
+
+// c += a b for one 16 x 8 x 8 tile: A row-major, B column-major, TF32 in,
+// fp32 accumulated
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared memory of one block, in floats: the program, x1's rows (D = 0),
+// two stages of x2 and two of V's fragments (aliased by the k-halves' sum
+// at the end).
+template <int D>
+__host__ __device__ inline size_t full_smem_floats(int d, int dx, int nt) {
+  return (size_t)MAX_COEF + 2 * MAX_INSTR + (D == 0 ? FULL_ROWS * d : 0) +
+         2 * FULL_STAGE * dx + 2 * 16 * FULL_STAGE * nt;
+}
+
+template <int NT, int D, int LEAF>
+__global__ void __launch_bounds__(THREADS) matvec_full_tc_kernel(FullArgs a) {
+  constexpr int MT = 2;                   // 16-row MMA tiles a warp
+  constexpr int WR = FULL_ROWS / (16 * MT);  // row groups of the block
+  constexpr int KS = FULL_STAGE / 8 / 2;  // k-steps a k-half takes of each stage
+  constexpr int VSTAGE = 16 * FULL_STAGE * NT;  // floats of V's fragments a stage
+  static_assert(2 * WR == FULL_WARPS && KS % 2 == 0, "block shape");
+  const int n = a.n, d = a.d, dx = a.dx;
+
+  extern __shared__ __align__(16) float smem[];
+  float* s_coef = smem;
+  int* s_prog = reinterpret_cast<int*>(smem + MAX_COEF);
+  float* s_x1 = smem + MAX_COEF + 2 * MAX_INSTR;          // FULL_ROWS x d (D = 0)
+  float* s_x2 = s_x1 + (D == 0 ? FULL_ROWS * d : 0);      // 2 x FULL_STAGE x dx
+  float* s_v = s_x2 + 2 * FULL_STAGE * dx;                // 2 x VSTAGE
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp % WR, kg = warp / WR;  // row group, k-half
+  const int row0 = blockIdx.x * FULL_ROWS;
+  const int wrow = rg * 16 * MT;  // the warp's first row within the block
+  const int pass = blockIdx.y;
+
+  if constexpr (LEAF == 0) load_program(s_coef, s_prog, a.prog, a.n_instr, a.coef, a.n_coef);
+  float amp, xs;  // the leaf's amplitude (applied to the sums), x's scale
+  leaf_scales<LEAF>(a.prog, a.coef, amp, xs);
+
+  // the thread's x1 rows: wrow + 16 i + gid + 8 h
+  float xr[MT][2][D > 0 ? D : 1];
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wrow + 16 * i + gid + 8 * h;
+#pragma unroll
+        for (int k = 0; k < D; ++k)
+          xr[i][h][k] = (row < n && k < d) ? xs * a.x1[(size_t)row * d + k] : 0.0f;
+      }
+  } else {
+    for (int e = threadIdx.x; e < FULL_ROWS * d; e += THREADS)
+      s_x1[e] = row0 + e / d < n ? xs * a.x1[(size_t)row0 * d + e] : 0.0f;
+  }
+
+  const float* vsrc = a.vf + (size_t)pass * (a.m_pad / 8) * NT * 128;
+  auto stage = [&](int t, int buf) {
+    const float4* gx = reinterpret_cast<const float4*>(a.x2s + (size_t)t * FULL_STAGE * dx);
+    float4* sx = reinterpret_cast<float4*>(s_x2 + buf * FULL_STAGE * dx);
+    for (int e = threadIdx.x; e < FULL_STAGE * dx / 4; e += THREADS) cp_async16(sx + e, gx + e);
+    const float4* gv = reinterpret_cast<const float4*>(vsrc + (size_t)t * VSTAGE);
+    float4* sv = reinterpret_cast<float4*>(s_v + buf * VSTAGE);
+    for (int e = threadIdx.x; e < VSTAGE / 4; e += THREADS) cp_async16(sv + e, gv + e);
+    cp_async_commit();
+  };
+
+  // the thread's A fragments of k-step s of stage x2t: a0 .. a3 are rows
+  // gid, gid + 8 at k-column tig, then at tig + 4; split into hi and lo
+  auto fragments = [&](const float* x2t, int s, unsigned (&hi)[MT][4], unsigned (&lo)[MT][4]) {
+    const float* xb[2] = {x2t + (8 * s + tig) * dx, x2t + (8 * s + tig + 4) * dx};
+    float xq[2][D > 0 ? D : 1];
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int k = 0; k < D; k += 4) {
+          const float4 t4 = *reinterpret_cast<const float4*>(xb[c] + k);
+          xq[c][k] = t4.x;
+          xq[c][k + 1] = t4.y;
+          xq[c][k + 2] = t4.z;
+          xq[c][k + 3] = t4.w;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int h = f & 1, c = f >> 1;
+        float sq = 0.0f;
+        if constexpr (D > 0) {
+#pragma unroll
+          for (int k = 0; k < D; ++k) {
+            const float dd = xr[i][h][k] - xq[c][k];
+            sq = fmaf(dd, dd, sq);
+          }
+        } else {
+          const float* xa = s_x1 + (wrow + 16 * i + gid + 8 * h) * d;
+          for (int k = 0; k < d; ++k) {
+            const float dd = xa[k] - xb[c][k];
+            sq = fmaf(dd, dd, sq);
+          }
+        }
+        const float ent = leaf_entry<LEAF>(sq, s_prog, s_coef, a.n_instr, a.need_l2);
+        hi[i][f] = tf32_rna(ent);
+        lo[i][f] = tf32_rna(ent - __uint_as_float(hi[i][f]));
+      }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  const int stages = a.m_pad / FULL_STAGE;
+  stage(0, 0);
+  for (int t = 0; t < stages; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // stage t is in place; every warp is done with stage t - 1
+    if (t + 1 < stages) stage(t + 1, (t + 1) & 1);
+    const float* x2t = s_x2 + (t & 1) * FULL_STAGE * dx;
+    const float4* vt = reinterpret_cast<const float4*>(s_v + (t & 1) * VSTAGE);
+
+    // the k-half's k-steps two at a time: per tile of the pass, lo hi and
+    // hi lo, then hi hi, of both into a zeroed partial, which a rounded fp32
+    // add takes into the sum
+#pragma unroll 1
+    for (int q = 0; q < KS; q += 2) {
+      const int s0 = kg * KS + q;
+      unsigned ahi[2][MT][4], alo[2][MT][4];
+      fragments(x2t, s0, ahi[0], alo[0]);
+      fragments(x2t, s0 + 1, ahi[1], alo[1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float part[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][e] = 0.0f;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float4 b = vt[((s0 + u) * NT + j) * 32 + lane];
+          const unsigned bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+          const unsigned bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) mma_tf32(part[i], alo[u][i], bh0, bh1);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) mma_tf32(part[i], ahi[u][i], bl0, bl1);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) mma_tf32(part[i], ahi[u][i], bh0, bh1);
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][e];
+      }
+    }
+  }
+
+  // the k-halves of a row group: the second writes its sums into the stage
+  // buffers, the first adds them in
+  __syncthreads();  // every warp is done with the stage buffers
+  float* s_red = s_v;
+  if (kg > 0) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s_red[(((rg * MT + i) * NT + j) * 4 + e) * 32 + lane] = acc[i][j][e];
+  }
+  __syncthreads();
+  if (kg > 0) return;
+
+  // c0, c1: row gid, columns 2 tig and 2 tig + 1; c2, c3: row gid + 8
+  const int col0 = pass * NT * 8;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + wrow + 16 * i + gid + 8 * (e >> 1);
+        const int col = col0 + 8 * j + 2 * tig + (e & 1);
+        const float sum = acc[i][j][e] + s_red[(((rg * MT + i) * NT + j) * 4 + e) * 32 + lane];
+        if (row < n && col < a.r) a.out[(size_t)row * a.r + col] = amp * sum;
+      }
+}
+
+// One instantiation's launch: grid (128-row blocks, passes).
+template <int NT, int D, int LEAF>
+cudaError_t full_launch_one(const FullArgs& a, int passes, cudaStream_t st) {
+  const size_t smem = sizeof(float) * full_smem_floats<D>(a.d, a.dx, a.nt);
+  cudaError_t err = prepare(matvec_full_tc_kernel<NT, D, LEAF>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((a.n + FULL_ROWS - 1) / FULL_ROWS), (unsigned)passes);
+  matvec_full_tc_kernel<NT, D, LEAF><<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The pass's tiles of 8 columns, one of kernel_ops.FULL_TILES (acc holds
+// 8 NT floats a thread).
+template <int LEAF, int D>
+cudaError_t full_launch_d(const FullArgs& a, int passes, cudaStream_t st) {
+  switch (a.nt) {
+    case 1: return full_launch_one<1, D, LEAF>(a, passes, st);
+    case 2: return full_launch_one<2, D, LEAF>(a, passes, st);
+    case 3: return full_launch_one<3, D, LEAF>(a, passes, st);
+    case 4: return full_launch_one<4, D, LEAF>(a, passes, st);
+    case 5: return full_launch_one<5, D, LEAF>(a, passes, st);
+    case 6: return full_launch_one<6, D, LEAF>(a, passes, st);
+    case 8: return full_launch_one<8, D, LEAF>(a, passes, st);
+    case 9: return full_launch_one<9, D, LEAF>(a, passes, st);
+    case 12: return full_launch_one<12, D, LEAF>(a, passes, st);
+    case 16: return full_launch_one<16, D, LEAF>(a, passes, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A compiled leaf at x width D (4, or 0 for a loop over d).
+template <int LEAF>
+cudaError_t full_launch_leaf(const FullArgs& a, int passes, int D, cudaStream_t st) {
+  switch (D) {
+    case 0: return full_launch_d<LEAF, 0>(a, passes, st);
+    case 4: return full_launch_d<LEAF, 4>(a, passes, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The Matern instantiations (gram_matvec_full_matern.cu).
+cudaError_t gm_full_launch_matern(const FullArgs& a, int leaf, int passes, int D,
+                                  cudaStream_t st);

@@ -39,7 +39,8 @@
 //     loaded once per item. Each warp stages its own 8 columns' x_j and V_j
 //     in a double buffer of its own, prefetched into registers a tile
 //     ahead, so the walk takes no block-wide barrier.
-//   * Leaves fixed at compile time. A tree of one RBF or Matern leaf is an
+//   * Leaves fixed at compile time (gram_matvec_common.cuh, shared with
+//     K2). A tree of one RBF or Matern leaf is an
 //     instantiation (LEAF = its opcode): x is prescaled so that the squared
 //     distance already carries the leaf's coefficient (RBF then costs the
 //     SFU's ex2 alone), and the amplitude is applied once to each partial
@@ -91,7 +92,6 @@ constexpr int SYM_R_MAX = 16;      // columns of V per pass
 constexpr int SYM_WARPS = THREADS / 32;
 constexpr int SYM_WCOLS = 8;       // tile columns per warp: 2 column lanes x 4
 constexpr int SYM_LDK = 12;        // padded row of a warp's 64 x 8 entries (R >= 8)
-constexpr float SYM_LOG2E = 1.4426950408889634f;
 
 // padded row of V in shared memory: conflict-free 16-byte reads by 8 rows
 template <int R>
@@ -173,50 +173,6 @@ __device__ __forceinline__ void sym_fixed_add(unsigned long long* sum, unsigned 
   atomicAdd(sum + idx, (unsigned long long)__double2ll_rn((double)val * s));
 }
 
-// 2^t by the SFU alone (ex2.approx.ftz: about 2 ulp; results below 2^-126
-// flush to zero, far below what a kernel entry contributes).
-__device__ __forceinline__ float sym_exp2(float t) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(t));
-  return y;
-}
-
-// One kernel entry from its squared distance. LEAF = 0: the postfix
-// interpreter, the whole value. Else the leaf of that opcode without its
-// amplitude c0, which the kernel applies to each partial sum before the
-// flush, and with x prescaled by sym_x_scale, so that sq already carries
-// the leaf's c1: RBF is c0 2^-sq, a Matern's s = c1 l2 is sqrt(sq).
-template <int LEAF>
-__device__ __forceinline__ float sym_entry(float sq, const int* prog, const float* coef,
-                                           int n_instr, int need_l2) {
-  if constexpr (LEAF == 0) {
-    return eval_tree(prog, coef, n_instr, sq, need_l2 ? sqrtf(sq) : 0.0f);
-  } else if constexpr (LEAF == OP_RBF) {
-    return sym_exp2(-sq);
-  } else {
-    static_assert(LEAF == OP_MATERN12 || LEAF == OP_MATERN32 || LEAF == OP_MATERN52);
-    const float s = sqrtf(sq);
-    const float e = sym_exp2(s * -SYM_LOG2E);
-    if constexpr (LEAF == OP_MATERN12) {
-      return e;
-    } else if constexpr (LEAF == OP_MATERN32) {
-      return (1.0f + s) * e;
-    } else {
-      return (1.0f + s + s * s * (1.0f / 3.0f)) * e;
-    }
-  }
-}
-
-// The factor a compiled leaf's x is scaled by: RBF c0 exp(c1 sq), c1 <= 0,
-// is c0 2^-(sq') for x' = sqrt(-c1 log2 e) x; a Matern's c1 l2 is the
-// distance of x' = c1 x. 1 for the interpreter.
-template <int LEAF>
-__device__ __forceinline__ float sym_x_scale(float c1) {
-  if constexpr (LEAF == 0) return 1.0f;
-  if constexpr (LEAF == OP_RBF) return sqrtf(-c1 * SYM_LOG2E);
-  return c1;
-}
-
 template <int R, int D, int LEAF>
 __global__ void __launch_bounds__(THREADS) matvec_sym_kernel(SymArgs a) {
   constexpr int LDV = sym_ldv<R>();
@@ -252,12 +208,8 @@ __global__ void __launch_bounds__(THREADS) matvec_sym_kernel(SymArgs a) {
     const int row = row_i + rr, col = c0 + c;
     s_vi[rr * LDV + c] = (row < n && col < r) ? a.v[(size_t)row * r + col] : 0.0f;
   }
-  float amp = 1.0f, xs = 1.0f;  // the leaf's amplitude (applied to partial sums), x's scale
-  if constexpr (LEAF != 0) {
-    const float* c = a.coef + a.prog[1];
-    amp = c[0];
-    xs = sym_x_scale<LEAF>(c[1]);
-  }
+  float amp, xs;  // the leaf's amplitude (applied to partial sums), x's scale
+  leaf_scales<LEAF>(a.prog, a.coef, amp, xs);
   if constexpr (D == 0) {
     load_x(s_xi, a.x, row_i, n, d, false);
     for (int e = threadIdx.x; e < TILE * d; e += THREADS) s_xi[e] *= xs;  // this thread's own
@@ -353,7 +305,7 @@ __global__ void __launch_bounds__(THREADS) matvec_sym_kernel(SymArgs a) {
             sq = fmaf(t, t, sq);
           }
         }
-        kv[i][jj] = sym_entry<LEAF>(sq, s_prog, s_coef, a.n_instr, a.need_l2);
+        kv[i][jj] = leaf_entry<LEAF>(sq, s_prog, s_coef, a.n_instr, a.need_l2);
       }
     }
 

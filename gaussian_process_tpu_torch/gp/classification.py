@@ -359,7 +359,8 @@ def laplace_fit_cg(
     tol, max_iters = _newton_args(tol, max_iters, cfg)
     x_train = _k._dist._as_2d(x_train)
     n = x_train.shape[0]
-    Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel)
+    Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel,
+                               _reg.cg_dot_mode(cg_tol))
     k_nw, p_nw, _ = _k.split_white(kernel, params)
     U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
     dt = x_train.dtype
@@ -428,7 +429,8 @@ def predict_binary_cg(
     x_train = _k._dist._as_2d(x_train)
     x_test = _k._dist._as_2d(x_test)
     m = x_test.shape[0]
-    Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel)
+    Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel,
+                               _reg.cg_dot_mode(cg_tol))
     sw = state.sqrt_w
     Bmv = _b_matvec(Kmv, sw)
     apply = woodbury_apply(sw.to(state.U.dtype)[:, None] * state.U)

@@ -321,7 +321,8 @@ def laplace_fit_multiclass_cg(
     x_train = _k._dist._as_2d(x_train)
     n = x_train.shape[0]
     C = int(num_classes)
-    Kmv_cols = _reg.kernel_operator(kernel, params, x_train, use_kernel)
+    Kmv_cols = _reg.kernel_operator(kernel, params, x_train, use_kernel,
+                                    _reg.cg_dot_mode(cg_tol))
     Kmv = lambda u: Kmv_cols(u.T).T  # noqa: E731  (C, n) -> (C, n), one sweep
     k_nw, p_nw, _ = _k.split_white(kernel, params)
     U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))

@@ -198,18 +198,28 @@ def sample_posterior(
     return post.mean[:, None] + L @ eps
 
 
+def cg_dot_mode(tol: float) -> str:
+    """The matvec's ``dot_mode`` for a CG tolerance, the JAX package's rule
+    (``gp/regression.py``, ADVICE r4): "highest" (full fp32) below 1e-5,
+    where the recurrence residual would "converge" past the TPU's split
+    product's precision, else "split3". On the card both modes take the
+    same products (``ops.cuda.kernel_ops.gram_matvec``)."""
+    return "highest" if tol < 1e-5 else "split3"
+
+
 def kernel_operator(kernel: _k.Kernel, params: _k.Params, x: torch.Tensor,
-                    use_kernel: Optional[bool]) -> Callable[[torch.Tensor], torch.Tensor]:
+                    use_kernel: Optional[bool], dot_mode: str = "split3",
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
     """v -> K(x, x) v, White included, for v (n,) or (n, r): the matvec of
     every matrix-free path. ``use_kernel`` (the JAX package's
     ``use_pallas``): one ``ops.cuda.gram_matvec`` sweep (K3 for thin v, K2
-    for wide v); None means ``ops.cuda.kernel_ops.use_matvec_kernel``.
-    Otherwise a dense K, which a CUDA tensor may hold only up to
-    ``DENSE_CUDA_MAX_N`` points."""
+    for wide v) under ``dot_mode`` (:func:`cg_dot_mode`); None means
+    ``ops.cuda.kernel_ops.use_matvec_kernel``. Otherwise a dense K, which a
+    CUDA tensor may hold only up to ``DENSE_CUDA_MAX_N`` points."""
     if use_kernel is None:
         use_kernel = _kops.use_matvec_kernel(kernel, x)
     if use_kernel:
-        return lambda v: _kops.gram_matvec(kernel, params, x, None, v)
+        return lambda v: _kops.gram_matvec(kernel, params, x, None, v, dot_mode=dot_mode)
     if x.is_cuda and x.shape[0] > DENSE_CUDA_MAX_N:
         raise ValueError(
             f"a matrix-free solve at n = {x.shape[0]} on the GPU needs the CUDA matvec, "
@@ -282,7 +292,7 @@ def posterior_cg(
 
     if use_kernel is None:
         use_kernel = _kops.use_matvec_kernel(kernel, x_train)
-    matvec = kernel_operator(k_nw, p_nw, x_train, use_kernel)
+    matvec = kernel_operator(k_nw, p_nw, x_train, use_kernel, cg_dot_mode(tol))
     noisy_mv = lambda v: matvec(v) + shift * v
     if preconditioner == "auto":
         preconditioner = "nystrom" if n > 4096 else "jacobi"

@@ -4,7 +4,7 @@
 (one process per source, in parallel) and links them into a shared library
 with a plain C interface, under ``gaussian_process_tpu_torch/_build/``
 (listed in ``.gitignore``). The file name carries a hash of the sources,
-the shared header and the flags, so an edited source is rebuilt and a
+the headers and the flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing here runs at import
 time; :func:`load` is called by the kernel wrappers on their first launch.
 """
@@ -24,9 +24,9 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("chol_panel.cu", "gram.cu", "gram_matvec.cu", "gram_matvec_bwd.cu",
-           "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
-HEADERS = ("gram_matvec_common.cuh", "gram_matvec_sym.cuh")
+SOURCES = ("chol_panel.cu", "gram.cu", "gram_matvec.cu", "gram_matvec_full_matern.cu",
+           "gram_matvec_bwd.cu", "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
+HEADERS = ("gram_matvec_common.cuh", "gram_matvec_full.cuh", "gram_matvec_sym.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -108,12 +108,15 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gm_matvec_full.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, p]
-        lib.gm_matvec_full.restype = i
         lib.gm_matvec_sym.argtypes = [p, p, p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, p]
         lib.gm_matvec_sym.restype = i
-        lib.gm_smem_bytes.argtypes = [i, i]
-        lib.gm_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_matvec_full_tc.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
+                                          i, p]
+        lib.gm_matvec_full_tc.restype = i
+        lib.gm_full_tc_smem_bytes.argtypes = [i, i, i]
+        lib.gm_full_tc_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_full_tc_x_width.argtypes = [i, i]
+        lib.gm_full_tc_x_width.restype = i
         lib.gm_sym_smem_bytes.argtypes = [i, i]
         lib.gm_sym_smem_bytes.restype = ctypes.c_size_t
         lib.gm_matvec_bwd.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, p]

@@ -6,8 +6,9 @@ Torch counterpart of the JAX package's ``ops/pallas/kernel_ops.py``
 hand-written CUDA kernels do the work on a CUDA tensor:
 
 - :func:`gram_cuda` (the tile gram, ``csrc/gram.cu``, replaces ``gram``);
-- :func:`matvec_full_cuda` (full sweep, ``csrc/gram_matvec.cu``, replaces
-  ``_matvec_fwd_impl``);
+- :func:`matvec_full_cuda` (full sweep, ``csrc/gram_matvec_full.cuh`` and
+  ``csrc/gram_matvec.cu``, replaces ``_matvec_fwd_impl``): 3xTF32 on the
+  tensor cores, columns in passes from :func:`full_passes`;
 - :func:`matvec_sym_cuda` (same-set upper-triangle sweep,
   ``csrc/gram_matvec_sym.cu``, replaces ``_matvec_fwd_sym_impl``), over work
   items that :func:`sym_schedule` builds on the host;
@@ -82,8 +83,16 @@ SYM_TILE = 64
 SYM_RESIDENT = 132 * 4
 SYM_ITEMS = 8 * SYM_RESIDENT
 SYM_PASS_COLUMNS = 16  # columns of V per pass of the sweep
-# single-leaf trees the sweep evaluates as compiled instantiations
+# single-leaf trees the sweeps evaluate as compiled instantiations
 SYM_COMPILED_LEAVES = (OP_RBF, OP_MATERN12, OP_MATERN32, OP_MATERN52)
+# the JAX package's output products of the matvec: "split3" (a 3-pass
+# split product) and "highest" (full fp32); see gram_matvec
+DOT_MODES = ("split3", "highest")
+# the full sweep (csrc/gram_matvec_full.cuh): a pass holds one of
+# FULL_TILES 8-column MMA tiles (its instantiations, at most 128 columns);
+# x2 rows padded to a multiple of FULL_M_ALIGN
+FULL_TILES = (1, 2, 3, 4, 5, 6, 8, 9, 12, 16)
+FULL_M_ALIGN = 64
 # largest dynamic shared memory a block may use on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 
@@ -299,8 +308,6 @@ def gram_matvec_reference(
     return out[:, 0] if vec_in else out
 
 
-
-
 def _safe_half_inv(l2: torch.Tensor) -> torch.Tensor:
     """0.5 / l2, and 0 where l2 = 0 (coincident points add nothing to the
     x-gradient: see ``leaf_grad`` in ``csrc/gram_matvec_common.cuh``)."""
@@ -487,15 +494,15 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _forward_args(program, coef, x, v, symmetric: bool):
+def _forward_args(program, coef, x, smem_bytes):
+    """The library and the program on x's device, once ``smem_bytes(lib)``,
+    the shared memory of one block of the launch, fits."""
     from gaussian_process_tpu_torch.ops.cuda import _build
 
     lib = _build.load()
-    d = x.shape[1]
-    r = int(v.shape[1])
-    smem = lib.gm_sym_smem_bytes(_sym_pass(r), d) if symmetric else lib.gm_smem_bytes(r, d)
+    smem = smem_bytes(lib)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
+        raise ValueError(f"d = {x.shape[1]} needs {smem} bytes of shared memory per block")
     prog = _prog_tensor(program, MAX_INSTR, MAX_COEF, coef.numel(), x.device)
     return lib, prog
 
@@ -536,27 +543,60 @@ def gram_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: Optional[torc
     return out
 
 
+def full_passes(r: int) -> Tuple[int, int]:
+    """The full sweep's column passes for an r-column V: ``(passes,
+    columns a pass)``: the fewest passes of at most 128 columns, each a
+    whole number of 8-column MMA tiles, the least of FULL_TILES that holds
+    its even share of r. r = 1, 9, 65, 72, 130, 512
+    give (1, 8), (1, 16), (1, 72), (1, 72), (2, 72), (4, 128)."""
+    tiles = -(-r // 8)
+    passes = -(-tiles // FULL_TILES[-1])
+    share = -(-tiles // passes)
+    return passes, 8 * min(t for t in FULL_TILES if t >= share)
+
+
+def full_columns(r: int) -> int:
+    """The columns the full sweep computes for an r-column V
+    (:func:`full_passes`): r = 1, 9, 65, 72, 130, 512 give 8, 16, 72, 72,
+    144, 512."""
+    passes, width = full_passes(r)
+    return passes * width
+
+
 def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.Tensor,
                      v: torch.Tensor, *, need_l2: bool) -> torch.Tensor:
     """K(x1, x2) @ v by the full-sweep CUDA kernel, for the postfix
     ``program`` over the coefficient vector ``coef`` (:func:`encode`). Takes
     centred, contiguous fp32 CUDA tensors x1c (n, d), x2c (m, d), v (m, r);
-    raises on anything else."""
+    raises on anything else. The product is 3xTF32 on the tensor cores
+    under both ``dot_mode``s (:func:`gram_matvec` says why), in the passes
+    of :func:`full_passes`, with a compiled route for one RBF or Matern
+    leaf (:func:`sym_route`). One call is two device launches (a staging
+    pass that splits V, then the sweep) and counts one. Every output row is
+    written once, so a rerun gives equal bits."""
     _check_cuda_f32(coef=coef, x1=x1c, x2=x2c, v=v)
     n, d = x1c.shape
     m, r = v.shape
     if x2c.shape != (m, d):
         raise ValueError(f"x2 shape {tuple(x2c.shape)} does not match v {tuple(v.shape)}")
-    lib, prog = _forward_args(program, coef, x1c, v, False)
     out = torch.empty((n, r), dtype=torch.float32, device=x1c.device)
+    route = sym_route(program)
+    passes, width = full_passes(r)
+    nt = width // 8
+    lib, prog = _forward_args(program, coef, x1c,
+                              lambda lib: lib.gm_full_tc_smem_bytes(nt, d, route))
+    m_pad = _round_up(m, FULL_M_ALIGN)
+    x2s = torch.empty((m_pad, lib.gm_full_tc_x_width(route, d)), dtype=torch.float32,
+                      device=x1c.device)
+    vf = torch.empty((passes, m_pad, 2 * width), dtype=torch.float32, device=x1c.device)
     with torch.cuda.device(x1c.device):
-        err = lib.gm_matvec_full(
-            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), out.data_ptr(),
-            prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(), n, m, d, r,
-            int(need_l2), _stream(x1c.device),
+        err = lib.gm_matvec_full_tc(
+            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), out.data_ptr(), x2s.data_ptr(),
+            vf.data_ptr(), prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(),
+            route, passes, nt, n, m, m_pad, d, r, int(need_l2), _stream(x1c.device),
         )
     if err != 0:
-        raise RuntimeError(f"gm_matvec_full launch failed: cudaError {err}")
+        raise RuntimeError(f"gm_matvec_full_tc launch failed: cudaError {err}")
     launch_counts["gram_matvec_full"] += 1
     return out
 
@@ -600,9 +640,9 @@ def _sym_pass(r: int) -> int:
 
 
 def sym_route(program) -> int:
-    """The symmetric sweep's route for a postfix program: the leaf's opcode
-    for a tree of one RBF or Matern leaf (a compiled instantiation), else 0
-    (the interpreter)."""
+    """The route of the symmetric and the full sweep for a postfix
+    program: the leaf's opcode for a tree of one RBF or Matern leaf (a
+    compiled instantiation), else 0 (the interpreter)."""
     if len(program) == 1 and program[0][0] in SYM_COMPILED_LEAVES:
         return program[0][0]
     return 0
@@ -663,7 +703,8 @@ def matvec_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tens
     if v.shape[0] != n:
         raise ValueError(f"v has {v.shape[0]} rows, x has {n}")
     r = v.shape[1]
-    lib, prog = _forward_args(program, coef, xc, v, True)
+    lib, prog = _forward_args(program, coef, xc,
+                              lambda lib: lib.gm_sym_smem_bytes(_sym_pass(r), d))
     items = _sym_items_on_device(n, xc.device)
     scale, flag = sym_fixed_point_scales(program, coef, v)
     acc = torch.zeros((n, r), dtype=torch.int64, device=xc.device)
@@ -911,6 +952,7 @@ def gram_matvec(
     *,
     symmetric: Optional[bool] = None,
     row_chunk: int = 4096,
+    dot_mode: str = "split3",
 ) -> torch.Tensor:
     """K(x1, x2) @ v without materialising K (matrix-free; powers CG).
 
@@ -919,11 +961,20 @@ def gram_matvec(
     gradient of the kernel part goes through ``_GramMatvecFn`` (its backward
     is the CUDA backward sweep on the card), White's ``white * v`` term
     through ordinary autograd. The inputs are centred on a detached
-    mean(x1), as the JAX package's ``lax.stop_gradient`` centre. The CUDA
-    kernels form the output product with plain fp32 FMAs, so the JAX
-    package's ``dot_mode`` has no counterpart here. ``row_chunk`` bounds the
-    plain forward's memory on the CPU.
+    mean(x1), as the JAX package's ``lax.stop_gradient`` centre.
+
+    ``dot_mode``, the JAX package's names and default: "split3" or
+    "highest" (anything else raises ``ValueError``). The JAX callers pass
+    "highest" below a CG tolerance of 1e-5, as the port's do, because the
+    TPU's bf16 split product stops at about 1.5e-5. On the card every sweep
+    computes the same product under both modes: the full sweep 3xTF32 on
+    the tensor cores, within a few 1e-6 of float64 at n = 102400 (more
+    precise than fp32 FMAs over the same sweep), the symmetric and
+    backward sweeps fp32 FMAs. On the CPU the plain version runs under
+    both. ``row_chunk`` bounds the plain forward's memory on the CPU.
     """
+    if dot_mode not in DOT_MODES:
+        raise ValueError(f"dot_mode must be one of {DOT_MODES}, got {dot_mode!r}")
     if not _k.is_stationary(kernel):
         raise ValueError("gram_matvec supports stationary kernels only")
     same = x2 is None

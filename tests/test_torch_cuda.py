@@ -51,23 +51,92 @@ def _tree(name, device):
 MATCH_CASES = [("sum", 3, 193, 1), ("sum", 3, 300, 3), ("sum", 3, 2500, 16), ("sum", 3, 700, 130),
                *[("rbf", d, n, r) for d in (2, 4) for n, r in ((193, 1), (300, 3), (2500, 9))],
                ("matern32", 1, 777, 33), ("matern52", 5, 2100, 9), ("matern32", 9, 300, 2)]
+# the full sweep's widths besides: the serving path's 65, a whole 72, the
+# binary prediction's 512 (four passes), on the compiled and interpreted routes
+FULL_CASES = [(tree, d, n, r) for tree, d in (("rbf", 4), ("sum", 3))
+              for n, r in ((1000, 65), (777, 72), (700, 512))]
+# (sweep, dot_mode, launch count)
+SWEEPS = {"sym": (True, "split3", "gram_matvec_sym"),
+          "full_split3": (False, "split3", "gram_matvec_full"),
+          "full_highest": (False, "highest", "gram_matvec_full")}
 
 
-@pytest.mark.parametrize("tree,d,n,r", MATCH_CASES)
-@pytest.mark.parametrize("symmetric", [True, False])
-def test_kernel_matches_plain_on_card(cuda, tree, d, n, r, symmetric):
+@pytest.mark.parametrize("sweep,tree,d,n,r",
+                         [(sw, *c) for sw in SWEEPS for c in MATCH_CASES]
+                         + [(sw, *c) for sw in ("full_split3", "full_highest") for c in FULL_CASES])
+def test_kernel_matches_plain_on_card(cuda, sweep, tree, d, n, r):
+    """Each sweep against the plain version: K3, and K2 under both
+    ``dot_mode``s (3xTF32 tensor-core products under both)."""
     rng = np.random.default_rng(n + r + d)
     kernel, params = _tree(tree, cuda)
     x = torch.tensor(rng.uniform(-5, 5, (n, d)), dtype=torch.float32, device=cuda)
     v = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float32, device=cuda)
-    name = "gram_matvec_sym" if symmetric else "gram_matvec_full"
+    symmetric, dot_mode, name = SWEEPS[sweep]
     before = kops.launch_counts[name]
-    got = kops.gram_matvec(kernel, params, x, None, v, symmetric=symmetric)
+    got = kops.gram_matvec(kernel, params, x, None, v, symmetric=symmetric, dot_mode=dot_mode)
     torch.cuda.synchronize()
     assert kops.launch_counts[name] == before + 1
     want = kops.gram_matvec_reference(kernel, params, x, None, v, same=True)
     # fp32 sums over n terms in another order (the symmetric sweep's
-    # partials are fp32 before its fixed-point sum)
+    # partials are fp32 before its fixed-point sum; 3xTF32 is within a few
+    # ulps of fp32 products, summed in fp32 a k-step at a time)
+    assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("tree", ["rbf", "sum"])
+@pytest.mark.parametrize("dot_mode", ["split3", "highest"])
+@pytest.mark.parametrize("r", [9, 65, 512])
+def test_full_sweep_is_bitwise_reproducible_on_card(cuda, tree, dot_mode, r):
+    """K2 writes every output row once, with no atomics: two runs on the
+    same inputs give equal bits under both modes."""
+    rng = np.random.default_rng(30 + r)
+    kernel, params = _tree(tree, cuda)
+    x = torch.tensor(rng.uniform(-5, 5, (1100, 3)), dtype=torch.float32, device=cuda)
+    v = torch.tensor(rng.standard_normal((1100, r)), dtype=torch.float32, device=cuda)
+    first = kops.gram_matvec(kernel, params, x, None, v, symmetric=False, dot_mode=dot_mode)
+    second = kops.gram_matvec(kernel, params, x, None, v, symmetric=False, dot_mode=dot_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("tree", ["rbf", "sum"])
+@pytest.mark.parametrize("dot_mode", ["split3", "highest"])
+@pytest.mark.parametrize("where", ["v", "params"])
+def test_full_sweep_propagates_nan_on_card(cuda, tree, dot_mode, where):
+    """A NaN in V makes its column NaN in every row and leaves the others
+    finite; NaN params make every entry NaN (0 x NaN is NaN: nothing masks
+    it, not the padded rows or columns)."""
+    rng = np.random.default_rng(5)
+    kernel, params = _tree(tree, cuda)
+    if where == "params":
+        params = kops._k.tree_map_params(lambda a: a * float("nan"), params)
+    x = torch.tensor(rng.uniform(-5, 5, (700, 3)), dtype=torch.float32, device=cuda)
+    v = torch.tensor(rng.standard_normal((700, 9)), dtype=torch.float32, device=cuda)
+    if where == "v":
+        v[123, 4] = float("nan")
+    out = kops.gram_matvec(kernel, params, x, None, v, symmetric=False, dot_mode=dot_mode)
+    nan = torch.isnan(out)
+    if where == "v":
+        rest = torch.cat([out[:, :4], out[:, 5:]], dim=1)
+        assert bool(nan[:, 4].all()) and bool(torch.isfinite(rest).all())
+    else:
+        assert bool(nan.all())
+
+
+@pytest.mark.parametrize("tree", ["rbf", "sum_no_white"])
+@pytest.mark.parametrize("dot_mode", ["split3", "highest"])
+def test_full_sweep_cross_set_ragged_on_card(cuda, tree, dot_mode):
+    """K2 with a second point set of m = 129 rows (the "split3" route pads
+    x2 to 192 rows of zero coordinates, V with zero rows) and n = 257 (a
+    last block of one row), against the plain version."""
+    rng = np.random.default_rng(12)
+    kernel, params = _tree(tree, cuda)
+    x1 = torch.tensor(rng.uniform(-5, 5, (257, 4)), dtype=torch.float32, device=cuda)
+    x2 = torch.tensor(rng.uniform(-5, 5, (129, 4)), dtype=torch.float32, device=cuda)
+    v = torch.tensor(rng.standard_normal((129, 9)), dtype=torch.float32, device=cuda)
+    got = kops.gram_matvec(kernel, params, x1, x2, v, dot_mode=dot_mode)
+    want = kops.gram_matvec_reference(kernel, params, x1, x2, v)
+    assert got.shape == (257, 9)
     assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
 
 
@@ -443,3 +512,28 @@ def test_binary_classifier_from_numpy_goes_matrix_free_on_card(cuda):
     assert kops.launch_counts["gram_matvec_sym"] > before
     prob = model.predict_proba(x[:256])
     assert prob.shape == (256,) and bool(torch.isfinite(prob).all())
+
+
+@pytest.mark.parametrize("tree,d,r", [("rbf", 4, 65), ("rbf", 4, 512), ("sum_no_white", 3, 65)])
+def test_full_sweep_is_near_float64_on_card(cuda, tree, d, r):
+    """K2's 3xTF32 product against float64: within 2e-5 x max |float64|,
+    the bound chip_smoke.py holds it to at n = 102400. A 1xTF32 output
+    product of the same fp32 entries, about 2^-11 a product, lands past
+    it."""
+    rng = np.random.default_rng(40 + r)
+    kernel, params = _tree(tree, cuda)
+    x = torch.tensor(rng.uniform(-5, 5, (8192, d)), dtype=torch.float32, device=cuda)
+    v = torch.tensor(rng.standard_normal((8192, r)), dtype=torch.float32, device=cuda)
+    got = kops.gram_matvec(kernel, params, x, None, v, symmetric=False)
+    p64 = kops._k.tree_map_params(lambda a: a.double(), params)
+    want = kops.gram_matvec_reference(kernel, p64, x.double(), None, v.double(), same=True)
+    limit = 2e-5 * float(want.abs().max())
+    assert float((got.double() - want).abs().max()) <= limit
+    K = kops._k.gram(kernel, params, x, x)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one = K @ v
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert float((one.double() - want).abs().max()) > limit
