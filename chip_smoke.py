@@ -35,21 +35,26 @@ one JSON line:
    twice, with equal CG iterations and bitwise-equal means and variances;
    then the same pipeline at n = 4096 against the exact path (max abs
    error < 1e-2);
-6. kernels_bwd: the CUDA backward sweep (K4) against its plain version in
-   float64 (dL/dcoef within 1e-3 relative per coefficient, dL/dx within
+6. kernels_bwd: K4's two CUDA backward sweeps against their plain version
+   in float64 (dL/dcoef within 1e-3 relative per coefficient, dL/dx within
    2e-4 x max |plain|) for RBF, Matern 5/2 and co2 without White at
-   n in {4096, 3001}, r in {1, 8, 9}, same-set and cross-set; the params
-   gradient through the CUDA ``gram_matvec`` against autograd through the
-   plain version; then K4 at n = 102400 at the widths a training step hands
-   it (r = 1, r = 8), timed against the plain VJP;
+   n in {4096, 3001}, r in {1, 8, 9}: the full sweep same-set and
+   cross-set, with and without dx, the symmetric sweep same-set without
+   dx; the params gradient through the CUDA ``gram_matvec`` (the symmetric
+   sweep) against autograd through the plain version; then at n = 102400
+   the symmetric sweep at the width a training step hands it (r = 9) and at
+   r = 1, timed beside the full sweep and the plain VJP on the same inputs,
+   and the full sweep at its own path's shape (n = 4096, r = 65);
 7. train_exact: ``GPRegressor(...).fit(x, y, optimize=True, max_iters=50)``
    (Adam, log transform) at n = 8192 in fp32, gated against the same run in
    float64 (rel LML 3e-4, rel params 1e-3); it must launch K1 and K5;
 8. train_large: ``opt.tune_large_scale`` at n = 102400 (8 probes, Nyström
-   rank 2048, cg_tol 1e-4, 3 steps), which must launch K3 and exactly two
-   K4 per step; then at n = 4096 the surrogate's gradient (64 probes)
-   within 0.1 of the exact float64 LML gradient, and 10 steps raising the
-   exact LML by more than 1.0;
+   rank 2048, cg_tol 1e-4, 3 steps), which must launch K3 and exactly one
+   symmetric K4 sweep per step (one matvec on [alpha | z], r = 9) and no
+   full one; then, read as a path of its own, at n = 4096 the surrogate's
+   gradient (64 probes: 65 columns, past the symmetric rule, so one full
+   K4 sweep) within 0.1 of the exact float64 LML gradient, and 10 steps
+   (a symmetric sweep each) raising the exact LML by more than 1.0;
 9. classify_dense: ``GPBinaryClassifier`` and ``GPMulticlassClassifier``
    (C = 3) ``fit(..., solver="cholesky")`` and ``predict_proba`` at
    n = 4096, m = 2048, d = 2, RBF(1, 1), fp32 gated against float64 on the
@@ -138,8 +143,10 @@ CHECK_R = (1, 9, 16, 65, 72, 512)
 # K3 at the classifiers' shape, d = 2 and RBF(1, 1): the Newton fits' widths
 CLS_R = (1, 3)
 # K2's instantiations at r = 65 (9 tiles of 8 columns) and r = 512 (passes
-# of 16), compiled RBF at d <= 4: their instruction mix is reported
+# of 16), compiled RBF at d <= 4, and the symmetric K4 sweep's at the
+# training step's r = 9: their instruction mix is reported
 K2_SASS = ("matvec_full_tc_kernel<9,4,1>", "matvec_full_tc_kernel<16,4,1>")
+K4_SYM_SASS = ("matvec_bwd_sym_kernel<9,4,1>",)
 # K3 against K2 on the same inputs, recorded for the sweep rule's gate
 CROSS_R, CROSS_N = (9, 16, 33, 64), (4096, 102400)
 SOURCES = {
@@ -148,6 +155,7 @@ SOURCES = {
     "gram_matvec_sym": "gaussian_process_tpu_torch/csrc/gram_matvec_sym.cu",
     "gram_matvec_full": "gaussian_process_tpu_torch/csrc/gram_matvec_full.cuh",
     "gram_matvec_bwd": "gaussian_process_tpu_torch/csrc/gram_matvec_bwd.cu",
+    "gram_matvec_bwd_sym": "gaussian_process_tpu_torch/csrc/gram_matvec_bwd_sym.cuh",
     "chol_inv_panel": "gaussian_process_tpu_torch/csrc/chol_panel.cu",
 }
 REPLACES = {
@@ -156,12 +164,17 @@ REPLACES = {
     "gram_matvec_sym": "gaussian_process_tpu/ops/pallas/kernel_ops.py:391",
     "gram_matvec_full": "gaussian_process_tpu/ops/pallas/kernel_ops.py:303",
     "gram_matvec_bwd": "gaussian_process_tpu/ops/pallas/kernel_ops.py:518",
+    "gram_matvec_bwd_sym": "gaussian_process_tpu/ops/pallas/kernel_ops.py:518",
     "chol_inv_panel": "gaussian_process_tpu/ops/pallas/chol.py:155",
 }
 # K4 vs its plain version in float64: dL/dcoef per coefficient (fp32 entry
 # products summed in float64), dL/dx as the forward's bound
 BWD_COEF_RTOL = 1e-3
-BWD_R = (1, 8)  # the widths a training step hands K4: the alpha VJP, the probe VJP
+# the width a training step hands K4 ([alpha | z], 1 + 8 probes), and r = 1
+BWD_R = (9, 1)
+BWD_CHECK_N = (4096, 3001)  # K4's sweeps against the plain VJP
+# the full K4 sweep's own path: the n = 4096 estimator, 64 probes
+BWD_FULL_N, BWD_FULL_R = 4096, 65
 GATE_PARAMS = 1e-3  # train_exact: rel params, fp32 vs float64
 TRAIN_STEPS, TRAIN_PROBES, TRAIN_RANK = 3, 8, 2048
 # K1 against the plain gram: KERNEL_RTOL, and the JAX package's absolute
@@ -292,7 +305,8 @@ def phase_build() -> None:
     seconds = time.perf_counter() - t0
     emit("build", seconds=seconds, nvcc_seconds=_build.build_info.get("seconds"),
          ptxas=_ptxas_usage(_build.build_info.get("ptxas", "")),
-         k2_sass_mix=_sass_mix(lib_path, K2_SASS))
+         k2_sass_mix=_sass_mix(lib_path, K2_SASS),
+         k4_sym_sass_mix=_sass_mix(lib_path, K4_SYM_SASS))
 
 
 def _case_kernels(device):
@@ -723,24 +737,30 @@ def _centred(x1, x2):
     return x1c, (x1c if x2 is None else (x2 - c).contiguous())
 
 
-def _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx):
-    """K4 once against the float64 plain VJP on the same (fp32) inputs;
-    returns the errors."""
+def _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx, sweep="gram_matvec_bwd"):
+    """One of K4's sweeps (``sweep``: the full one, or the symmetric one,
+    same-set without dx) once against the float64 plain VJP on the same
+    (fp32) inputs; returns the errors."""
     program, coefs = kops.encode(kernel, params)
     coef = kops.coef_vector(coefs, dtype=torch.float32, device=x1c.device)
     need_l2 = tk.needs_l2(kernel)
-    before = kops.launch_counts["gram_matvec_bwd"]
-    d_coef, d_x = kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct, need_l2=need_l2,
-                                       want_dx=want_dx)
+    before = kops.launch_counts[sweep]
+    if sweep == "gram_matvec_bwd_sym":
+        require(x1c is x2c and not want_dx, "the symmetric sweep: same set, no dx")
+        d_coef = kops.matvec_bwd_sym_cuda(program, coef, x1c, v, ct, need_l2=need_l2)
+        d_x = None
+    else:
+        d_coef, d_x = kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct, need_l2=need_l2,
+                                           want_dx=want_dx)
     torch.cuda.synchronize()
-    require(kops.launch_counts["gram_matvec_bwd"] == before + 1, "gram_matvec_bwd launched")
+    require(kops.launch_counts[sweep] == before + 1, f"{sweep} launched")
     want, want_dx_ = kops.gram_matvec_vjp_reference(
         program, kops.coef_vector(coefs, dtype=torch.float64, device=x1c.device),
         x1c.double(), x2c.double(), v.double(), ct.double(), need_l2=need_l2, want_dx=want_dx)
     rel = torch.abs(d_coef.double() - want) / torch.abs(want)
     coef_err = float(torch.max(rel))
     require(np.isfinite(coef_err) and coef_err <= BWD_COEF_RTOL,
-            f"K4 dL/dcoef within {BWD_COEF_RTOL} (got {coef_err:.3e})")
+            f"{sweep} dL/dcoef within {BWD_COEF_RTOL} (got {coef_err:.3e})")
     out = {"coef_rel_err": coef_err,
            "coef_abs_err": float(torch.max(torch.abs(d_coef.double() - want)))}
     if want_dx:
@@ -751,8 +771,9 @@ def _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx):
 
 def _grad_fault_repro(device, gen, cases) -> list:
     """The params gradient through the CUDA gram_matvec (the autograd
-    Function, whose backward launches K4) against autograd through the
-    plain version in float64: it must equal it, not be zero."""
+    Function, whose backward launches K4's symmetric sweep here: same set,
+    n >= 2048, no dx) against autograd through the plain version in
+    float64: it must equal it, not be zero."""
     rows = []
     n = 3001
     x = torch.tensor(gen.uniform(-5, 5, (n, D)), dtype=torch.float32, device=device)
@@ -762,12 +783,13 @@ def _grad_fault_repro(device, gen, cases) -> list:
         kernel, params = cases[family]
         p32 = tk.tree_map_params(lambda a: a.detach().clone().requires_grad_(True), params)
         p64 = tk.tree_map_params(lambda a: a.detach().double().requires_grad_(True), params)
-        before = kops.launch_counts["gram_matvec_bwd"]
+        before = dict(kops.launch_counts)
         loss = torch.sum(w * kops.gram_matvec(kernel, p32, x, None, v))
         got = torch.autograd.grad(loss, tk.tree_leaves(p32))
         torch.cuda.synchronize()
-        require(kops.launch_counts["gram_matvec_bwd"] == before + 1,
-                "the params gradient went through K4")
+        require(kops.launch_counts["gram_matvec_bwd_sym"] == before["gram_matvec_bwd_sym"] + 1
+                and kops.launch_counts["gram_matvec_bwd"] == before["gram_matvec_bwd"],
+                "the params gradient went through K4's symmetric sweep")
         ref = torch.sum(w.double() * kops.gram_matvec_reference(
             kernel, p64, x.double(), None, v.double(), same=True))
         want = torch.autograd.grad(ref, tk.tree_leaves(p64))
@@ -783,7 +805,7 @@ def _grad_fault_repro(device, gen, cases) -> list:
 def phase_kernels_bwd(device, gen: np.random.Generator) -> dict:
     cases = _case_kernels(device)
     checked = []
-    for n in (4096, 3001):
+    for n in BWD_CHECK_N:
         x = torch.tensor(gen.uniform(-5, 5, (n, D)), dtype=torch.float32, device=device)
         x2 = torch.tensor(gen.uniform(-5, 5, (n // 2 + 7, D)), dtype=torch.float32,
                           device=device)
@@ -795,47 +817,83 @@ def phase_kernels_bwd(device, gen: np.random.Generator) -> dict:
                                  device=device)
                 ct = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32,
                                   device=device)
+                sweeps = [("gram_matvec_bwd", False), ("gram_matvec_bwd", True)]
+                if same:
+                    sweeps.append(("gram_matvec_bwd_sym", False))
                 for family, (kernel, params) in cases.items():
-                    for want_dx in (False, True):
-                        errs, _ = _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx)
-                        checked.append({"family": family, "n": n, "m": m, "r": r,
-                                        "same": same, "dx": want_dx, **errs})
+                    for sweep, want_dx in sweeps:
+                        errs, _ = _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx, sweep)
+                        checked.append({"kernel": sweep, "family": family, "n": n, "m": m,
+                                        "r": r, "same": same, "dx": want_dx, **errs})
     emit("kernels_bwd_vs_plain",
          tolerance=f"dL/dcoef rel <= {BWD_COEF_RTOL} per coefficient (plain in float64); "
                    f"dL/dx abs <= {KERNEL_RTOL} x max|plain|",
-         worst_coef_rel_err=max(c["coef_rel_err"] for c in checked),
+         worst_coef_rel_err={k: max(c["coef_rel_err"] for c in checked if c["kernel"] == k)
+                             for k in ("gram_matvec_bwd", "gram_matvec_bwd_sym")},
          cases=len(checked), rows=checked)
     emit("grad_fault_repro", rows=_grad_fault_repro(device, gen, cases))
 
-    # at the training step's shapes: n = 102400, RBF(1, 2), no x-gradient
+    # at the training step's shape: n = 102400, RBF(1, 2), no x-gradient;
+    # both sweeps on the same inputs, in turns (plain, full, symmetric,
+    # symmetric, full, plain)
     kernel, params = cases["rbf"]
     x = torch.tensor(gen.uniform(-5, 5, (N_BIG, D)), dtype=torch.float32, device=device)
     x1c, _ = _centred(x, None)
-    timed = {}
+    rows = []
     for r in BWD_R:
         v = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
         ct = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
         errs, (program, coef, need_l2) = _bwd_check(kernel, params, x1c, x1c, v, ct, False)
-        run = lambda: kops.matvec_bwd_cuda(program, coef, x1c, x1c, v, ct, need_l2=need_l2,
-                                           want_dx=False)
+        sym_errs, _ = _bwd_check(kernel, params, x1c, x1c, v, ct, False, "gram_matvec_bwd_sym")
+        full = lambda: kops.matvec_bwd_cuda(program, coef, x1c, x1c, v, ct, need_l2=need_l2,
+                                            want_dx=False)
+        sym = lambda: kops.matvec_bwd_sym_cuda(program, coef, x1c, v, ct, need_l2=need_l2)
         plain = lambda: kops.gram_matvec_vjp_reference(program, coef, x1c, x1c, v, ct,
                                                        need_l2=need_l2, want_dx=False)
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        plain_a = _time_ms(plain, 1)
-        ms_a = _time_ms(run, 3)
-        ms_b = _time_ms(run, 3)
-        plain_b = _time_ms(plain, 1)
+        again = sym()
+        plain_a, full_a = _time_ms(plain, 1), _time_ms(full, 3)
+        sym_a, sym_b = _time_ms(sym, 5), _time_ms(sym, 5)
+        full_b, plain_b = _time_ms(full, 3), _time_ms(plain, 1)
+        plain_ms = min(plain_a, plain_b)
         # per entry: the evaluation, the leaf's derivatives (about six
-        # flops), the G entry (2 r) and the coefficient sums (4)
-        timed[r] = {"kernel": "gram_matvec_bwd", "n": N_BIG, "r": r, **errs,
-                    "max_abs_err": errs["coef_abs_err"],
-                    "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
-                    "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b],
-                    **_bound(N_BIG ** 2 * (_entry_flops(D) + 6 + 2 * r + 4),
-                             (N_BIG * D + 2 * N_BIG * r) * 4)}
+        # flops), the G entry (2 r) and the coefficient sums (4); the
+        # symmetric sweep's n (n + 1) / 2 pairs each take a 2 r-term pair
+        # weight (4 r)
+        rows.append({"kernel": "gram_matvec_bwd", "n": N_BIG, "r": r, **errs,
+                     "max_abs_err": errs["coef_abs_err"], "ms": min(full_a, full_b),
+                     "plain_ms": plain_ms, "ms_runs": [full_a, full_b],
+                     "plain_ms_runs": [plain_a, plain_b],
+                     **_bound(N_BIG ** 2 * (_entry_flops(D) + 6 + 2 * r + 4),
+                              (N_BIG * D + 2 * N_BIG * r) * 4)})
+        rows.append({"kernel": "gram_matvec_bwd_sym", "n": N_BIG, "r": r, **sym_errs,
+                     "max_abs_err": sym_errs["coef_abs_err"], "ms": min(sym_a, sym_b),
+                     "plain_ms": plain_ms, "ms_runs": [sym_a, sym_b],
+                     "plain_ms_runs": [plain_a, plain_b],
+                     "full_sweep_ms": min(full_a, full_b),
+                     "passes_width": list(kops.bwd_sym_passes(r)),
+                     "bitwise_equal": bool(torch.equal(sym(), again)),
+                     **_bound(N_BIG * (N_BIG + 1) / 2 * (_entry_flops(D) + 6 + 4 * r + 4),
+                              (N_BIG * D + 2 * N_BIG * r) * 4)})
+        require(rows[-1]["bitwise_equal"], f"the symmetric K4 sweep twice at r = {r}: equal bits")
+    # the full sweep at its own path's shape (the n = 4096 estimator)
+    n, r = BWD_FULL_N, BWD_FULL_R
+    xf = torch.tensor(gen.uniform(-5, 5, (n, D)), dtype=torch.float32, device=device)
+    x1c, _ = _centred(xf, None)
+    v = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
+    ct = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
+    errs, (program, coef, need_l2) = _bwd_check(kernel, params, x1c, x1c, v, ct, False)
+    row = _in_turns(lambda: kops.matvec_bwd_cuda(program, coef, x1c, x1c, v, ct,
+                                                 need_l2=need_l2, want_dx=False),
+                    lambda: kops.gram_matvec_vjp_reference(program, coef, x1c, x1c, v, ct,
+                                                           need_l2=need_l2, want_dx=False),
+                    20, 5)
+    row.update(kernel="gram_matvec_bwd", n=n, r=r, **errs, max_abs_err=errs["coef_abs_err"],
+               **_bound(n ** 2 * (_entry_flops(D) + 6 + 2 * r + 4), (n * D + 2 * n * r) * 4))
     emit("kernels_bwd_timed", kernel="RBF(sigma=1, lengthscale=2)", plain="fp32 plain VJP",
-         rows=list(timed.values()))
-    return timed[max(BWD_R)]
+         rows=rows, full_sweep_path_shape=row)
+    return {"gram_matvec_bwd": row,
+            "gram_matvec_bwd_sym": next(t for t in rows if t["kernel"] == "gram_matvec_bwd_sym"
+                                        and t["r"] == BWD_R[0])}
 
 
 def _rel_params(a, b) -> float:
@@ -912,10 +970,12 @@ def phase_train_large(device, gen: np.random.Generator) -> None:
     require(abs(params["sigma"] - 1.3) > 1e-4 and abs(params["lengthscale"] - 1.7) > 1e-4,
             "training moved the params")
     require(counts["gram_matvec_sym"] > 0, "K3 launched in training")
-    require(counts["gram_matvec_bwd"] == 2 * TRAIN_STEPS, "two K4 launches per step")
+    require(counts["gram_matvec_bwd_sym"] == TRAIN_STEPS and counts["gram_matvec_bwd"] == 0,
+            "one symmetric K4 sweep per step, no full one")
 
-    # at n = 4096 with the kernels on: the estimator against the exact LML,
-    # on the JAX suite's problem (tests/test_large_scale.py: d = 3, noise 0.05)
+    # at n = 4096 with the kernels on, read as a path of its own: the
+    # estimator against the exact LML, on the JAX suite's problem
+    # (tests/test_large_scale.py: d = 3, noise 0.05)
     x64 = torch.tensor(gen.uniform(-5, 5, (N_PARITY, 3)), device=device)
     y64 = torch.sin(0.9 * x64.sum(dim=1)) + 0.05 * torch.tensor(
         gen.standard_normal(N_PARITY), device=device)
@@ -927,12 +987,16 @@ def phase_train_large(device, gen: np.random.Generator) -> None:
     exact = gp.log_marginal_likelihood(kernel, p64, x64, y64, noise_variance=1e-2)
     g_exact = torch.autograd.grad(exact, list(p64.values()))
     p32 = {k: v.detach().float().requires_grad_(True) for k, v in p64.items()}
-    before = kops.launch_counts["gram_matvec_bwd"]
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
     est = opt.lml_surrogate(kernel, p32, xs, ys, torch.Generator(device=device).manual_seed(1),
                             noise_variance=1e-2, num_probes=64, cg_tol=1e-5,
                             cg_max_iters=1000, precond_rank=512)
     g_est = torch.autograd.grad(est, list(p32.values()))
-    require(kops.launch_counts["gram_matvec_bwd"] == before + 2, "the estimator ran K4")
+    torch.cuda.synchronize()
+    require(kops.launch_counts["gram_matvec_bwd"] == 1
+            and kops.launch_counts["gram_matvec_bwd_sym"] == 0,
+            "the 64-probe estimator (65 columns) ran one full K4 sweep")
     grad_rel = {k: abs(float(a) - float(b)) / abs(float(b))
                 for k, a, b in zip(p64, g_est, g_exact)}
     lml0 = float(exact.detach())
@@ -940,13 +1004,17 @@ def phase_train_large(device, gen: np.random.Generator) -> None:
                                  xs, ys, noise_variance=1e-2, steps=10, num_probes=8,
                                  cg_tol=1e-5, cg_max_iters=1000, precond_rank=512,
                                  learning_rate=0.1)
+    torch.cuda.synchronize()
+    counts = dict(kops.launch_counts)
+    add_launches(counts)
+    require(counts["gram_matvec_bwd_sym"] == 10, "one symmetric K4 sweep per step at n = 4096")
     lml1 = float(gp.log_marginal_likelihood(
         kernel, {k: v.double() for k, v in small.params.items()}, x64, y64,
         noise_variance=1e-2))
     emit("train_large_parity", n=N_PARITY, grad_rel_err=grad_rel, gate_grad=0.1,
          grad_estimate=[float(g) for g in g_est], grad_exact=[float(g) for g in g_exact],
          lml_before=lml0, lml_after_10_steps=lml1, gate_rise=1.0,
-         cg_iters=list(small.cg_iters))
+         cg_iters=list(small.cg_iters), launches=counts)
     require(max(grad_rel.values()) < 0.1, "surrogate gradient within 0.1 of the exact one")
     require(lml1 > lml0 + 1.0, "10 matrix-free steps raised the exact LML by more than 1")
 
@@ -1338,7 +1406,7 @@ def main() -> int:
     timings.update(phase_kernels_gram(device, gen(4)))
     phase_exact(device, gen(5))
     phase_matrix_free(device, gen(6))
-    timings["gram_matvec_bwd"] = phase_kernels_bwd(device, gen(7))
+    timings.update(phase_kernels_bwd(device, gen(7)))
     phase_train_exact(device, gen(8))
     phase_train_large(device, gen(9))
     phase_classify_dense(device, gen(10))

@@ -30,15 +30,11 @@
 //   * G is formed per tile from ct and V column chunks of 32 in shared
 //     memory; each thread owns one column b and 16 rows of the tile.
 //   * The reverse pass through the postfix program is written out by hand
-//     (there is no in-kernel jax.vjp): the forward value of every
-//     instruction is kept, then ADD passes the adjoint through, MUL
-//     multiplies it by the other operand, SCALE multiplies it by its
-//     coefficient and adds value x adjoint to that coefficient's gradient,
-//     and each leaf adds to its own coefficients and to dk/dsq
-//     (leaf_grad in gram_matvec_common.cuh). A single-leaf program (RBF,
-//     Matern, ...) takes a path with its 4 coefficient accumulators in
-//     registers; a tree of up to MAX_BWD_INSTR instructions keeps its
-//     per-instruction values in local memory.
+//     (tree_grad in gram_matvec_common.cuh, shared with the symmetric
+//     sweep). A single-leaf program (RBF, Matern, ...) takes a path with
+//     its 4 coefficient accumulators in registers (leaf_grad); a tree of up
+//     to MAX_BWD_INSTR instructions keeps its per-instruction values in
+//     local memory.
 //   * dx1 = 2 sum_j G_ij dk/dsq (a_i - b_j) is a second pass over a shared
 //     64 x 64 tile of G dk/dsq, one output (row, dim) per thread, summed in
 //     the direct (a - b) form so no cancellation enters.
@@ -51,16 +47,14 @@
 // one float64 partial per coefficient; torch sums the partials over blocks
 // in float64. dx1 is accumulated in fp32 (64-term tile sums, then a running
 // sum over tiles).
-// Simple SIMT fp32 code; a symmetric backward sweep and a tensor-core G are
-// later work.
+// Simple SIMT fp32 code. The wrapper sends a same-set call that wants no dx
+// (a training step's) to the symmetric sweep, gram_matvec_bwd_sym.cuh; this
+// one takes cross-set calls and those that want dx1.
 
 #include "gram_matvec_common.cuh"
 
 namespace {
 
-constexpr int MAX_BWD_INSTR = 16;
-constexpr int MAX_BWD_COEF = 16;
-constexpr int LEAF_COEF = 4;                 // coefficients of the largest leaf
 constexpr int RC = 32;                       // ct / V columns per chunk of the G product
 constexpr int RC_LD = RC + 1;                // padded row: column reads are conflict-free
 constexpr int EPT = TILE * TILE / THREADS;   // entries per thread per tile (16)
@@ -81,53 +75,6 @@ __device__ __forceinline__ void load_cols(float* dst, const float* src, int row0
     const int row = row0 + rr, col = c0 + cc;
     dst[rr * RC_LD + cc] = (row < rows && col < r) ? src[(size_t)row * r + col] : 0.0f;
   }
-}
-
-// Reverse pass through the whole program for one entry with root adjoint g:
-// adds g dk/dcoef into tacc and returns g dk/dsq. kid holds the operand
-// instructions of each ADD / MUL (two) and SCALE (one).
-__device__ __forceinline__ float tree_grad(const int* prog, const int* kid, const float* coef,
-                                           int n_instr, float sq, float l2, float g,
-                                           float (&tacc)[MAX_BWD_COEF]) {
-  float val[MAX_BWD_INSTR], adj[MAX_BWD_INSTR], lsq[MAX_BWD_INSTR];
-  float ldc[MAX_BWD_INSTR][LEAF_COEF];
-#pragma unroll 1
-  for (int k = 0; k < n_instr; ++k) {
-    const int op = prog[2 * k], off = prog[2 * k + 1];
-    if (op == OP_ADD)
-      val[k] = val[kid[2 * k]] + val[kid[2 * k + 1]];
-    else if (op == OP_MUL)
-      val[k] = val[kid[2 * k]] * val[kid[2 * k + 1]];
-    else if (op == OP_SCALE)
-      val[k] = val[kid[2 * k]] * coef[off];
-    else
-      leaf_grad(op, coef + off, sq, l2, val[k], ldc[k], lsq[k]);
-    adj[k] = 0.0f;
-  }
-  adj[n_instr - 1] = g;  // the last instruction produces the root
-  float gsq = 0.0f;
-#pragma unroll 1
-  for (int k = n_instr - 1; k >= 0; --k) {
-    const int op = prog[2 * k], off = prog[2 * k + 1];
-    const float a = adj[k];
-    if (op == OP_ADD) {
-      adj[kid[2 * k]] += a;
-      adj[kid[2 * k + 1]] += a;
-    } else if (op == OP_MUL) {
-      const int lhs = kid[2 * k], rhs = kid[2 * k + 1];
-      adj[lhs] += a * val[rhs];
-      adj[rhs] += a * val[lhs];
-    } else if (op == OP_SCALE) {
-      const int child = kid[2 * k];
-      adj[child] += a * coef[off];
-      tacc[off] += a * val[child];
-    } else {
-      const int nc = leaf_coefs(op);
-      for (int j = 0; j < nc; ++j) tacc[off + j] += a * ldc[k][j];
-      gsq += a * lsq[k];
-    }
-  }
-  return gsq;
 }
 
 // NC: coefficient accumulators per thread; TREE: the program has more than
@@ -161,24 +108,7 @@ __global__ void __launch_bounds__(THREADS)
   load_x(xa, x1, row0, n, d, false);
   for (int i = t; i < TILE * d; i += THREADS) dxs[i] = 0.0f;
   __syncthreads();
-  if (TREE && t == 0) {  // operands of each instruction, by simulating the stack
-    int st[MAX_STACK];
-    int sp = 0;
-    for (int k = 0; k < n_instr; ++k) {
-      const int op = s_prog[2 * k];
-      if (op == OP_ADD || op == OP_MUL) {
-        kid[2 * k] = st[sp - 2];
-        kid[2 * k + 1] = st[sp - 1];
-        st[sp - 2] = k;
-        --sp;
-      } else if (op == OP_SCALE) {
-        kid[2 * k] = st[sp - 1];
-        st[sp - 1] = k;
-      } else {
-        st[sp++] = k;
-      }
-    }
-  }
+  if (TREE && t == 0) program_kids(s_prog, n_instr, kid);  // operands of each instruction
 
   double dacc[NC];
 #pragma unroll

@@ -1,9 +1,11 @@
 // Shared by the tile gram (gram.cu), the forward sweeps (K2,
-// gram_matvec_full.cuh; K3, gram_matvec_sym.cuh) and the backward sweep
-// (gram_matvec_bwd.cu): the postfix program's opcodes, the per-entry leaf
-// arithmetic and its hand-written derivatives, the compiled leaves of the
-// forward sweeps, and the tile loaders. Keeping one copy means the backward
-// differentiates exactly the function that the forward evaluates.
+// gram_matvec_full.cuh; K3, gram_matvec_sym.cuh) and the backward sweeps
+// (K4: gram_matvec_bwd.cu, the full sweep, and gram_matvec_bwd_sym.cuh,
+// the symmetric one): the postfix program's opcodes, the per-entry leaf
+// arithmetic and its hand-written derivatives, the reverse pass through a
+// program, the compiled leaves of the sweeps, and the tile loaders. Keeping
+// one copy means the backward differentiates exactly the function that the
+// forward evaluates.
 
 #pragma once
 
@@ -166,6 +168,89 @@ __device__ __forceinline__ void leaf_grad(int op, const float* c, float sq, floa
       dsq = 0.0f;
       break;
   }
+}
+
+// ------------------------------------------------------- the reverse pass
+//
+// Shared by the two backward sweeps (gram_matvec_bwd.cu, the full sweep;
+// gram_matvec_bwd_sym.cuh, the symmetric one): a tree of at most
+// MAX_BWD_INSTR instructions and MAX_BWD_COEF coefficients keeps every
+// instruction's forward value per entry.
+
+constexpr int MAX_BWD_INSTR = 16;
+constexpr int MAX_BWD_COEF = 16;
+constexpr int LEAF_COEF = 4;  // coefficients of the largest leaf
+
+// The operand instructions of each ADD / MUL (two) and SCALE (one) of the
+// program, into kid (2 n_instr ints), by simulating its stack.
+__device__ __forceinline__ void program_kids(const int* prog, int n_instr, int* kid) {
+  int st[MAX_STACK];
+  int sp = 0;
+  for (int k = 0; k < n_instr; ++k) {
+    const int op = prog[2 * k];
+    if (op == OP_ADD || op == OP_MUL) {
+      kid[2 * k] = st[sp - 2];
+      kid[2 * k + 1] = st[sp - 1];
+      st[sp - 2] = k;
+      --sp;
+    } else if (op == OP_SCALE) {
+      kid[2 * k] = st[sp - 1];
+      st[sp - 1] = k;
+    } else {
+      st[sp++] = k;
+    }
+  }
+}
+
+// Reverse pass through the whole program for one entry with root adjoint g
+// (there is no in-kernel jax.vjp): the forward value of every instruction
+// is kept, then ADD passes the adjoint through, MUL multiplies it by the
+// other operand, SCALE multiplies it by its coefficient and adds value x
+// adjoint to that coefficient's gradient, and each leaf adds to its own
+// coefficients (leaf_grad). Adds g dk/dcoef into tacc and returns
+// g dk/dsq; kid is program_kids' table.
+__device__ __forceinline__ float tree_grad(const int* prog, const int* kid, const float* coef,
+                                           int n_instr, float sq, float l2, float g,
+                                           float (&tacc)[MAX_BWD_COEF]) {
+  float val[MAX_BWD_INSTR], adj[MAX_BWD_INSTR], lsq[MAX_BWD_INSTR];
+  float ldc[MAX_BWD_INSTR][LEAF_COEF];
+#pragma unroll 1
+  for (int k = 0; k < n_instr; ++k) {
+    const int op = prog[2 * k], off = prog[2 * k + 1];
+    if (op == OP_ADD)
+      val[k] = val[kid[2 * k]] + val[kid[2 * k + 1]];
+    else if (op == OP_MUL)
+      val[k] = val[kid[2 * k]] * val[kid[2 * k + 1]];
+    else if (op == OP_SCALE)
+      val[k] = val[kid[2 * k]] * coef[off];
+    else
+      leaf_grad(op, coef + off, sq, l2, val[k], ldc[k], lsq[k]);
+    adj[k] = 0.0f;
+  }
+  adj[n_instr - 1] = g;  // the last instruction produces the root
+  float gsq = 0.0f;
+#pragma unroll 1
+  for (int k = n_instr - 1; k >= 0; --k) {
+    const int op = prog[2 * k], off = prog[2 * k + 1];
+    const float a = adj[k];
+    if (op == OP_ADD) {
+      adj[kid[2 * k]] += a;
+      adj[kid[2 * k + 1]] += a;
+    } else if (op == OP_MUL) {
+      const int lhs = kid[2 * k], rhs = kid[2 * k + 1];
+      adj[lhs] += a * val[rhs];
+      adj[rhs] += a * val[lhs];
+    } else if (op == OP_SCALE) {
+      const int child = kid[2 * k];
+      adj[child] += a * coef[off];
+      tacc[off] += a * val[child];
+    } else {
+      const int nc = leaf_coefs(op);
+      for (int j = 0; j < nc; ++j) tacc[off + j] += a * ldc[k][j];
+      gsq += a * lsq[k];
+    }
+  }
+  return gsq;
 }
 
 __device__ __forceinline__ float eval_tree(const int* prog, const float* coef, int n_instr,

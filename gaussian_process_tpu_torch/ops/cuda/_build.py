@@ -25,8 +25,10 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("chol_panel.cu", "gram.cu", "gram_matvec.cu", "gram_matvec_full_matern.cu",
-           "gram_matvec_bwd.cu", "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
-HEADERS = ("gram_matvec_common.cuh", "gram_matvec_full.cuh", "gram_matvec_sym.cuh")
+           "gram_matvec_bwd.cu", "gram_matvec_bwd_sym.cu", "gram_matvec_bwd_sym_matern.cu",
+           "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
+HEADERS = ("gram_matvec_common.cuh", "gram_matvec_full.cuh", "gram_matvec_sym.cuh",
+           "gram_matvec_bwd_sym.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -123,6 +125,10 @@ def load() -> ctypes.CDLL:
         lib.gm_matvec_bwd.restype = i
         lib.gm_bwd_smem_bytes.argtypes = [i]
         lib.gm_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_matvec_bwd_sym.argtypes = [p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, p]
+        lib.gm_matvec_bwd_sym.restype = i
+        lib.gm_bwd_sym_smem_bytes.argtypes = [i, i]
+        lib.gm_bwd_sym_smem_bytes.restype = ctypes.c_size_t
         lib.gm_gram.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, p]
         lib.gm_gram.restype = i
         lib.gm_gram_smem_bytes.argtypes = [i]

@@ -12,8 +12,11 @@ hand-written CUDA kernels do the work on a CUDA tensor:
 - :func:`matvec_sym_cuda` (same-set upper-triangle sweep,
   ``csrc/gram_matvec_sym.cu``, replaces ``_matvec_fwd_sym_impl``), over work
   items that :func:`sym_schedule` builds on the host;
-- :func:`matvec_bwd_cuda` (the backward sweep, ``csrc/gram_matvec_bwd.cu``,
-  replaces ``_matvec_bwd_sweep``).
+- :func:`matvec_bwd_cuda` (the full backward sweep, ``csrc/gram_matvec_bwd.cu``,
+  replaces ``_matvec_bwd_sweep``) and :func:`matvec_bwd_sym_cuda` (the
+  symmetric backward sweep, ``csrc/gram_matvec_bwd_sym.cuh``, the same
+  function over the upper-triangle tiles for a same-set call that wants no
+  x-gradient, a training step's).
 
 :func:`gram` is the port's one dense-gram dispatcher: fp32 CUDA inputs and
 a stationary kernel take :func:`gram_ad` (``_GramFn``: the tile gram
@@ -68,9 +71,15 @@ OP_MUL = 10
 MAX_INSTR = 64
 MAX_COEF = 256
 MAX_STACK = 8
-# the backward sweep keeps every instruction's value per entry: smaller limits
+# the backward sweeps keep every instruction's value per entry: smaller limits
 MAX_BWD_INSTR = 16
 MAX_BWD_COEF = 16
+# the symmetric backward sweep (csrc/gram_matvec_bwd_sym.cuh): its compiled
+# pass widths (columns of V and ct a pass), and the float64 sums a compiled
+# leaf writes per work item (S0, S1; the interpreter writes MAX_BWD_COEF)
+BWD_SYM_WIDTHS = (1, 2, 4, 6, 9, 12, 16)
+BWD_SYM_LEAF_SUMS = 2
+LOG2E = 1.4426950408889634
 BWD_ROWS = 64  # x1 rows per block of the backward sweep (its partials' count)
 # the symmetric sweep's fixed point: each column's largest sum is scaled to
 # at most 2^61, two bits below int64's range (csrc/gram_matvec_sym.cuh)
@@ -101,7 +110,7 @@ MAX_SMEM_BYTES = 232448
 # differentiable wrapper, "chol_inv_panel" each call of the panel factor
 # (ops/cuda/chol.py), whatever its count of device launches
 launch_counts = {"gram": 0, "gram_ad": 0, "gram_matvec_full": 0, "gram_matvec_sym": 0,
-                 "gram_matvec_bwd": 0, "chol_inv_panel": 0}
+                 "gram_matvec_bwd": 0, "gram_matvec_bwd_sym": 0, "chol_inv_panel": 0}
 
 
 def reset_launch_counts() -> None:
@@ -371,7 +380,7 @@ def _program_vjp(program, coef: torch.Tensor, sq: torch.Tensor,
                  l2: Optional[torch.Tensor], g: torch.Tensor):
     """Reverse pass through the postfix program on a tile, with root
     adjoint ``g``: returns (sum over the tile of g dk/dcoef, g dk/dsq). The
-    plain version of ``tree_grad`` in ``csrc/gram_matvec_bwd.cu``."""
+    plain version of ``tree_grad`` in ``csrc/gram_matvec_common.cuh``."""
     vals, kids, leaves, stack = [], [], {}, []
     for k, (op, off) in enumerate(program):
         if op in (OP_ADD, OP_MUL):
@@ -432,7 +441,8 @@ def gram_matvec_vjp_reference(
     want_dx: bool = True,
     row_chunk: Optional[int] = None,
 ):
-    """Plain PyTorch version of the backward sweep: for L = <ct, K(x1, x2) v>
+    """Plain PyTorch version of both backward sweeps (the full and the
+    symmetric one compute the same function): for L = <ct, K(x1, x2) v>
     returns (dL/dcoef, dL/dx1 or None), with the kernel's arithmetic (direct
     squared differences, hand-written leaf derivatives, the same rule at
     coincident points). Row blocks of ``row_chunk`` rows (None: about 2^24
@@ -681,6 +691,33 @@ def sym_schedule(n: int, items_wanted: int = SYM_ITEMS) -> Tuple[Tuple[int, int,
     return tuple(items)
 
 
+def bwd_sym_passes(r: int) -> Tuple[int, int]:
+    """The symmetric backward sweep's column passes for r columns of V and
+    ct: ``(passes, columns a pass)``, the fewest passes of at most 16
+    columns, each the least of BWD_SYM_WIDTHS that holds its even share of
+    r. r = 1, 3, 8, 9, 16, 17, 33, 64 give (1, 1), (1, 4), (1, 9), (1, 9),
+    (1, 16), (2, 9), (3, 12), (4, 16)."""
+    passes = -(-r // BWD_SYM_WIDTHS[-1])
+    share = -(-r // passes)
+    return passes, min(w for w in BWD_SYM_WIDTHS if w >= share)
+
+
+def bwd_sym_coef(program, coef: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
+    """dL/dcoef, in coef's dtype, from the symmetric backward sweep's
+    float64 sums (``csrc/gram_matvec_bwd_sym.cuh``). The interpreter's sums
+    are dL/dcoef itself. A compiled leaf c0 k'(x') (:func:`sym_route`) sums
+    S0 = sum w f and S1 = sum w h over its prescaled distances, so
+    dL/dc0 = S0 and dL/dc1 = c0 S1 / (-c1 log2 e) for RBF (x scaled by
+    sqrt(-c1 log2 e)) or c0 S1 / c1 for a Matern (x scaled by c1). Torch
+    ops on the device, no host round trip."""
+    route = sym_route(program)
+    if route == 0:
+        return sums[:coef.numel()].to(coef.dtype)
+    c0, c1 = coef[0].to(torch.float64), coef[1].to(torch.float64)
+    per_c1 = -c1 * LOG2E if route == OP_RBF else c1
+    return torch.stack([sums[0], c0 * sums[1] / per_c1]).to(coef.dtype)
+
+
 @functools.lru_cache(maxsize=32)
 def _sym_items_on_device(n: int, device: torch.device) -> torch.Tensor:
     """:func:`sym_schedule` as an int32 (items, 3) device tensor, copied
@@ -760,6 +797,50 @@ def matvec_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.T
         raise RuntimeError(f"gm_matvec_bwd launch failed: cudaError {err}")
     launch_counts["gram_matvec_bwd"] += 1
     return part.sum(dim=0).to(coef.dtype), dx
+
+
+def matvec_bwd_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tensor,
+                        ct: torch.Tensor, *, need_l2: bool) -> torch.Tensor:
+    """dL/dcoef for L = <ct, K(x, x) v> by the symmetric backward sweep over
+    the upper-triangle tiles: the function of :func:`matvec_bwd_cuda` with
+    x2 = x1 and no x-gradient. Centred contiguous fp32 CUDA tensors xc
+    (n, d), v and ct (n, r), any r (passes of :func:`bwd_sym_passes`);
+    trees up to MAX_BWD_INSTR instructions and MAX_BWD_COEF coefficients.
+    The route (:func:`sym_route`), the pass width and the work items
+    (:func:`sym_schedule`) are chosen here, before the launch. The kernel
+    writes one float64 partial per pass, work item and sum, with no
+    atomics; they are summed here in a fixed order and turned into dL/dcoef
+    by :func:`bwd_sym_coef`, so a rerun gives equal bits."""
+    from gaussian_process_tpu_torch.ops.cuda import _build
+
+    _check_cuda_f32(coef=coef, x=xc, v=v, ct=ct)
+    n, d = xc.shape
+    r = v.shape[1]
+    if v.shape[0] != n or ct.shape != (n, r):
+        raise ValueError(
+            f"shapes x {tuple(xc.shape)}, v {tuple(v.shape)}, ct {tuple(ct.shape)} do not agree"
+        )
+    prog = _prog_tensor(program, MAX_BWD_INSTR, MAX_BWD_COEF, coef.numel(), xc.device)
+    lib = _build.load()
+    passes, width = bwd_sym_passes(r)
+    smem = lib.gm_bwd_sym_smem_bytes(width, int(d))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
+    route = sym_route(program)
+    items = _sym_items_on_device(n, xc.device)
+    n_sums = BWD_SYM_LEAF_SUMS if route else MAX_BWD_COEF
+    part = torch.empty((passes * items.shape[0], n_sums), dtype=torch.float64,
+                       device=xc.device)
+    with torch.cuda.device(xc.device):
+        err = lib.gm_matvec_bwd_sym(
+            xc.data_ptr(), v.data_ptr(), ct.data_ptr(), part.data_ptr(), items.data_ptr(),
+            items.shape[0], prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(),
+            route, width, n, d, r, int(need_l2), _stream(xc.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"gm_matvec_bwd_sym launch failed: cudaError {err}")
+    launch_counts["gram_matvec_bwd_sym"] += 1
+    return bwd_sym_coef(program, coef, part.sum(dim=0))
 
 
 # ---------------------------------------------------------------- autograd
@@ -862,9 +943,14 @@ def _forward(spec: _Spec, coef, x1c, x2c, v) -> torch.Tensor:
 
 
 def _vjp(spec: _Spec, coef, x1c, x2c, v, ct, want_dx: bool):
+    """(dL/dcoef, dL/dx1 or None): the plain version on a CPU tensor; on a
+    CUDA tensor the symmetric backward sweep for a same-set call that wants
+    no x-gradient (a training step's), else the full one."""
     if not x1c.is_cuda:
         return gram_matvec_vjp_reference(spec.program, coef, x1c, x2c, v, ct,
                                          need_l2=spec.need_l2, want_dx=want_dx)
+    if spec.sym and not want_dx:
+        return matvec_bwd_sym_cuda(spec.program, coef, x1c, v, ct, need_l2=spec.need_l2), None
     return matvec_bwd_cuda(spec.program, coef, x1c, x2c, v, ct, need_l2=spec.need_l2,
                            want_dx=want_dx)
 
@@ -880,7 +966,8 @@ class _GramMatvecFn(torch.autograd.Function):
     - d_v = K(x2, x1) @ ct by the forward kernels.
 
     A same-set call passes one tensor as x1c and x2c, so its two
-    x-gradients add. A training step needs only d_coef: one sweep."""
+    x-gradients add. A training step needs only d_coef: one sweep, the
+    symmetric one where the forward took the symmetric sweep (``_vjp``)."""
 
     @staticmethod
     def forward(ctx, coef, x1c, x2c, v, spec: _Spec):
@@ -959,7 +1046,7 @@ def gram_matvec(
     ``v``: (m,) or (m, r). ``x2=None`` means the same set, White's diagonal
     included. Differentiable in ``params``, ``x1``, ``x2`` and ``v``: the
     gradient of the kernel part goes through ``_GramMatvecFn`` (its backward
-    is the CUDA backward sweep on the card), White's ``white * v`` term
+    is a CUDA backward sweep on the card), White's ``white * v`` term
     through ordinary autograd. The inputs are centred on a detached
     mean(x1), as the JAX package's ``lax.stop_gradient`` centre.
 

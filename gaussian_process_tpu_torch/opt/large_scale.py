@@ -6,15 +6,17 @@ reverse, streams kernel tiles through ``ops.cuda.gram_matvec`` (the CUDA
 sweeps on an fp32 CUDA tensor). The estimator stack is the JAX package's:
 
 - quadratic term: alpha = A^{-1} y by Nyström-preconditioned block CG; its
-  gradient +1/2 alpha^T (dA/dtheta) alpha is one VJP of the matvec at alpha;
+  gradient is +1/2 alpha^T (dA/dtheta) alpha;
 - log-determinant gradient -1/2 tr(A^{-1} dA/dtheta) by Hutchinson:
   Rademacher probes z_i share the block CG solve (w_i = A^{-1} z_i), and
-  the estimate is one more VJP of the matvec at (w, z).
+  the estimate is -1/2 mean_i w_i^T (dA/dtheta) z_i.
 
-So one training step is one block CG solve of 1 + num_probes columns plus
-two matvec VJPs; with CUDA tensors each VJP is one launch of the backward
-sweep. ``slq_logdet`` and ``lml_estimate`` give LML *values* by stochastic
-Lanczos quadrature.
+Both are bilinear forms in A, so one differentiable matvec on
+V = [alpha | z] gives both terms (column 0 and columns 1 onward), and its
+VJP carries both gradients: one training step is one block CG solve of
+1 + num_probes columns plus one matvec VJP, with CUDA tensors one launch of
+the backward sweep (the JAX package makes two). ``slq_logdet`` and
+``lml_estimate`` give LML *values* by stochastic Lanczos quadrature.
 
 An explicit ``torch.Generator`` takes the place of the JAX key: the probes
 are drawn from it, so the port's probes are not the JAX package's.
@@ -62,6 +64,24 @@ def _rademacher(shape, generator: Optional[torch.Generator], like: torch.Tensor)
     return (2 * bits - 1).to(device=like.device, dtype=like.dtype)
 
 
+def _objective(matvec, params, y, alpha, w, z):
+    """The surrogate's params-dependent terms at fixed alpha, w and probes
+    z, from one matvec on [alpha | z]:
+
+    - quadratic term, value -1/2 y^T alpha; with A alpha = y its gradient
+      is +1/2 alpha^T dA alpha, the gradient of
+      -1/2 (2 y^T alpha - alpha^T A alpha) at fixed alpha;
+    - logdet pullback -1/2 mean_i w_i^T A z_i (its gradient estimates
+      -1/2 tr(A^{-1} dA); its value is a probe constant).
+
+    Autograd hands the matvec's backward the cotangent
+    [alpha / 2 | -w / (2 num_probes)]: one sweep for both gradients."""
+    az = matvec(params, torch.cat([alpha[:, None], z], dim=1))
+    quad = -0.5 * (2.0 * torch.dot(y, alpha) - torch.dot(alpha, az[:, 0]))
+    logdet_est = -0.5 * torch.mean(torch.sum(w * az[:, 1:], dim=0))
+    return quad + logdet_est
+
+
 def _surrogate(kernel, params, x, y, generator, *, noise_variance, num_probes, cg_tol,
                cg_max_iters, precond_rank, use_kernel):
     """``lml_surrogate``'s value and the CG state of its solve."""
@@ -86,15 +106,8 @@ def _surrogate(kernel, params, x, y, generator, *, noise_variance, num_probes, c
             precond_apply=pre.apply,
         )
     alpha, w = state.x[:, 0], state.x[:, 1:]
-
-    # quadratic term: value -1/2 y^T alpha; with A alpha = y its gradient is
-    # +1/2 alpha^T dA alpha = the gradient of -1/2 (2 y^T alpha - alpha^T A alpha)
-    # at fixed alpha
-    quad = -0.5 * (2.0 * torch.dot(y, alpha) - torch.dot(alpha, matvec(params, alpha)))
-    # logdet pullback: -1/2 mean_i w_i^T A z_i (its gradient estimates
-    # -1/2 tr(A^{-1} dA); its value is a probe constant)
-    logdet_est = -0.5 * torch.mean(torch.sum(w * matvec(params, z), dim=0))
-    return quad + logdet_est - 0.5 * n * math.log(2.0 * math.pi), state
+    value = _objective(matvec, params, y, alpha, w, z)
+    return value - 0.5 * n * math.log(2.0 * math.pi), state
 
 
 def lml_surrogate(
@@ -161,7 +174,8 @@ def tune_large_scale(
 ) -> LargeScaleResult:
     """Adam ascent on the matrix-free LML surrogate (log-space params by
     default). One step = one Nyström-preconditioned block CG solve (y and
-    the probes share every kernel tile) + two matvec VJPs; O(n * rank)
+    the probes share every kernel tile) + one matvec on [alpha | z] and its
+    VJP, which carries both terms' gradients; O(n * rank)
     memory. Probes are drawn from a generator seeded with ``seed`` on x's
     device."""
     to_opt, from_opt = _grad._transforms(transform)

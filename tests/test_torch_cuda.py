@@ -301,6 +301,115 @@ def test_backward_sweep_matches_plain_vjp_on_card(cuda, name, same):
         2e-4 * float(torch.max(torch.abs(want_dx)))
 
 
+BOOK = [66, 67, 2.4, 90, 1.3, 0.66, 1.2, 0.78, 0.18, 1.6, 0.19]
+# the symmetric backward sweep's families: its compiled RBF and Matern
+# routes and the interpreted co2 without White
+SYM_BWD_FAMILIES = {
+    "rbf": (ops.RBF(), {"sigma": 1.0, "lengthscale": 2.0}),
+    "matern12": (ops.Matern(nu=0.5), {"sigma": 1.2, "lengthscale": 0.9}),
+    "matern52": (ops.Matern(nu=2.5), {"sigma": 1.2, "lengthscale": 1.5}),
+    "co2_no_white": (ops.Sum(children=ops.co2_kernel().children[:4]),
+                     ops.co2_params_from_vector(torch.tensor(BOOK, dtype=torch.float64))[:4]),
+}
+
+
+def _sym_bwd_inputs(cuda, name, n, r, seed):
+    """A family's program and fp32 coefficients, centred fp32 points (d = 4)
+    and V, ct on the card."""
+    rng = np.random.default_rng(seed)
+    kernel, params = SYM_BWD_FAMILIES[name]
+    program, coefs = kops.encode(kernel, _params(params, cuda))
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=cuda)
+    x = torch.tensor(rng.uniform(-5, 5, (n, 4)), dtype=torch.float32, device=cuda)
+    xc = (x - torch.mean(x, dim=0, keepdim=True)).contiguous()
+    v = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float32, device=cuda)
+    ct = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float32, device=cuda)
+    return program, coef, xc, v, ct, kops._k.needs_l2(kernel)
+
+
+@pytest.mark.parametrize("name", sorted(SYM_BWD_FAMILIES))
+@pytest.mark.parametrize("n", [4096, 3001])
+@pytest.mark.parametrize("r", [1, 8, 9, 16, 33])
+def test_sym_backward_sweep_matches_plain_vjp_on_card(cuda, name, n, r):
+    """The symmetric backward sweep against the float64 plain VJP on the
+    same fp32 inputs: dL/dcoef within 1e-3 relative per coefficient (fp32
+    entry products, float64 sums), on the compiled routes and the
+    interpreter, in one pass (r <= 16, a 9-column pass at r = 8 and 9) or
+    three (r = 33); one launch counted."""
+    program, coef, xc, v, ct, need_l2 = _sym_bwd_inputs(cuda, name, n, r, n + r)
+    before = kops.launch_counts["gram_matvec_bwd_sym"]
+    got = kops.matvec_bwd_sym_cuda(program, coef, xc, v, ct, need_l2=need_l2)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram_matvec_bwd_sym"] == before + 1
+    want, _ = kops.gram_matvec_vjp_reference(program, coef.double(), xc.double(), xc.double(),
+                                             v.double(), ct.double(), need_l2=need_l2,
+                                             want_dx=False)
+    assert got.dtype == torch.float32 and got.shape == coef.shape
+    assert float(torch.max(torch.abs(got.double() - want) / torch.abs(want))) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2_no_white"])
+@pytest.mark.parametrize("r", [1, 9, 33])
+def test_sym_backward_sweep_is_bitwise_reproducible_on_card(cuda, name, r):
+    """One float64 partial per work item, no atomics, a fixed order of the
+    sums: two runs give equal bits."""
+    program, coef, xc, v, ct, need_l2 = _sym_bwd_inputs(cuda, name, 4100, r, 60 + r)
+    first = kops.matvec_bwd_sym_cuda(program, coef, xc, v, ct, need_l2=need_l2)
+    second = kops.matvec_bwd_sym_cuda(program, coef, xc, v, ct, need_l2=need_l2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2_no_white"])
+def test_sym_backward_sweep_propagates_nan_on_card(cuda, name):
+    """A NaN in V reaches every coefficient's gradient, as in the plain
+    VJP."""
+    program, coef, xc, v, ct, need_l2 = _sym_bwd_inputs(cuda, name, 700, 9, 3)
+    v[123, 4] = float("nan")
+    got = kops.matvec_bwd_sym_cuda(program, coef, xc, v, ct, need_l2=need_l2)
+    assert bool(torch.isnan(got).all())
+
+
+@pytest.mark.parametrize("case", ["same_coef_only", "same_with_dx", "cross_set"])
+def test_backward_dispatch_on_card(cuda, case):
+    """A same-set backward through the symmetric forward that wants only
+    the params (a training step's) launches the symmetric backward sweep
+    once and the full one never; one that wants dx, or a cross-set call,
+    does the reverse. Each gradient against the plain version's in
+    float64."""
+    rng = np.random.default_rng(9)
+    kernel, base = SYM_BWD_FAMILIES["rbf"]
+    base = _params(base, cuda)
+    x = torch.tensor(rng.uniform(-5, 5, (700, 3)), dtype=torch.float32, device=cuda)
+    x2 = torch.tensor(rng.uniform(-5, 5, (300, 3)), dtype=torch.float32, device=cuda)
+    same = case != "cross_set"
+    m = 700 if same else 300
+    v = torch.tensor(rng.standard_normal((m, 9)), dtype=torch.float32, device=cuda)
+    w = torch.tensor(rng.standard_normal((700, 9)), dtype=torch.float32, device=cuda)
+
+    def grads(dtype, fn):
+        p = _leaves_with_grad(base, dtype)
+        a = x.detach().to(dtype).requires_grad_(case == "same_with_dx")
+        b = None if same else x2.to(dtype)
+        out = fn(p, a, b, v.to(dtype))
+        wanted = kops._k.tree_leaves(p) + ([a] if case == "same_with_dx" else [])
+        return torch.autograd.grad(torch.sum(w.to(dtype) * out), wanted)
+
+    before = dict(kops.launch_counts)
+    got = grads(torch.float32, lambda p, a, b, vv: kops.gram_matvec(kernel, p, a, b, vv,
+                                                                    symmetric=True))
+    torch.cuda.synchronize()
+    sym = kops.launch_counts["gram_matvec_bwd_sym"] - before["gram_matvec_bwd_sym"]
+    full = kops.launch_counts["gram_matvec_bwd"] - before["gram_matvec_bwd"]
+    # a same-set dx takes two full sweeps (x as x1, then as x2)
+    assert (sym, full) == {"same_coef_only": (1, 0), "same_with_dx": (0, 2),
+                           "cross_set": (0, 1)}[case]
+    want = grads(torch.float64, lambda p, a, b, vv: kops.gram_matvec_reference(
+        kernel, p, a, b, vv, same=same))
+    for g, r in zip(got, want):
+        assert float(torch.max(torch.abs(g.double() - r))) <= 1e-3 * float(torch.max(torch.abs(r)))
+
+
 def test_backward_sweep_refuses_a_large_tree(cuda):
     kernel = ops.co2_kernel()
     for _ in range(3):

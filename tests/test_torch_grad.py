@@ -10,6 +10,12 @@
   leaf family and combinator, at rtol 1e-10.
 - ``linalg.cg_solve_grad`` on the quadratic LML term against the JAX
   package's dense solve: value rtol 1e-8, gradients rtol 1e-6.
+- The symmetric backward sweep (``csrc/gram_matvec_bwd_sym.cuh``) in
+  float64 on the CPU: its decomposition (the work items of
+  ``sym_schedule``, pair weights [ct_i | v_i] . [v_j | ct_j], half weight on
+  diagonal tiles) and its compiled leaves' prescaled sums, turned into
+  dL/dcoef by ``bwd_sym_coef``, against the plain VJP (rtol 1e-12 and
+  1e-10); its pass widths.
 """
 
 import jax
@@ -251,3 +257,141 @@ def test_cg_solve_grad_rhs_gradient(rng):
     # d/ds of w^T (s A)^{-1} b at s = 1 is -w^T A^{-1} b
     np.testing.assert_allclose(float(params["scale"].grad),
                                -float(w @ torch.linalg.solve(A, b.detach())), rtol=1e-8)
+
+
+# ------------------------------------------- the symmetric backward sweep
+#
+# On the card a same-set backward that wants no x-gradient (a training
+# step's) runs over the upper-triangle tiles only, each pair with the
+# weight w_ij = G_ij + G_ji, half of it on a diagonal tile. Here that
+# decomposition, in float64, is held to the plain VJP; the card's own runs
+# are in test_torch_cuda.py.
+
+SYM_BWD_FAMILIES = ("rbf", "matern12", "matern52", "co2_no_white")
+
+
+def _sym_bwd_case(rng, name, n, r, d=3):
+    """A family's program and float64 coefficients, centred points on a
+    spread that gives every family entries far from 0 and 1, and V, ct."""
+    kernel, params = FAMILIES[name]
+    # detached: FAMILIES' co2 leaves are shared with tests that differentiate them
+    params = tk.tree_map_params(lambda a: a.detach(),
+                                convert.params_from_numpy(params, dtype=torch.float64))
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float64, device="cpu")
+    x = torch.from_numpy(rng.uniform(-3, 3, (n, d)))
+    xc = x - x.mean(0, keepdim=True)
+    v = torch.from_numpy(rng.standard_normal((n, r)))
+    ct = torch.from_numpy(rng.standard_normal((n, r)))
+    return kernel, program, coef, xc, v, ct
+
+
+def _sym_bwd_strips(n, tile=64):
+    """The work items of ``sym_schedule(n)`` grouped by row strip: per strip
+    ti its rows, the columns of its items' tiles in the items' order, and
+    each column's factor (1/2 on the diagonal tile ti, else 1)."""
+    cols = {}
+    for ti, j0, j1 in kops.sym_schedule(n):
+        cols.setdefault(ti, []).extend(range(j0, j1))
+    for ti, tiles in cols.items():
+        idx = torch.cat([torch.arange(j * tile, min(n, (j + 1) * tile)) for j in tiles])
+        half = torch.where(idx // tile == ti, 0.5, 1.0).to(torch.float64)
+        yield torch.arange(ti * tile, min(n, (ti + 1) * tile)), idx, half
+
+
+def _sym_bwd_weights(xc, v, ct, rows, cols, half, scale=1.0):
+    """Pair weights [ct_i | v_i] . [v_j | ct_j] (halved on the diagonal
+    tile) and squared distances of x scaled by ``scale``, for one strip."""
+    w = torch.cat([ct[rows], v[rows]], 1) @ torch.cat([v[cols], ct[cols]], 1).T * half
+    diff = scale * xc[rows, None, :] - scale * xc[None, cols, :]
+    return w, torch.sum(diff * diff, dim=-1)
+
+
+@pytest.mark.parametrize("name", SYM_BWD_FAMILIES)
+@pytest.mark.parametrize("n", [3001, 200])
+@pytest.mark.parametrize("r", [1, 9, 17])
+def test_sym_backward_decomposition_matches_plain_vjp(rng, name, n, r):
+    """The symmetric sweep's sum: over the upper-triangle tiles of the
+    schedule K3 walks, each entry's dk/dcoef times its pair weight, half of
+    it on a diagonal tile, equals the full sweep's sum of G_ij dk_ij/dcoef
+    (the plain VJP), rtol 1e-12 in float64."""
+    kernel, program, coef, xc, v, ct = _sym_bwd_case(rng, name, n, r)
+    need_l2 = tk.needs_l2(kernel)
+    got = torch.zeros_like(coef)
+    for rows, cols, half in _sym_bwd_strips(n):
+        w, sq = _sym_bwd_weights(xc, v, ct, rows, cols, half)
+        got += kops._program_vjp(program, coef, sq, torch.sqrt(sq) if need_l2 else None, w)[0]
+    want, _ = kops.gram_matvec_vjp_reference(program, coef, xc, xc, v, ct, need_l2=need_l2,
+                                             want_dx=False, row_chunk=256)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
+
+
+def _compiled_leaf_terms(route, sq):
+    """A compiled leaf's two terms on the prescaled squared distance, in
+    float64 (bs_entry in csrc/gram_matvec_bwd_sym.cuh): RBF f = 2^-sq,
+    h = f sq; a Matern's s = sqrt(sq), f = p(s) e^-s, h = (p' - p) s e^-s."""
+    if route == kops.OP_RBF:
+        f = torch.exp2(-sq)
+        return f, f * sq
+    s = torch.sqrt(sq)
+    e = torch.exp(-s)
+    if route == kops.OP_MATERN12:
+        return e, -s * e
+    if route == kops.OP_MATERN32:
+        return (1.0 + s) * e, -s * s * e
+    return (1.0 + s + s * s / 3.0) * e, -s * s * (1.0 + s) / 3.0 * e
+
+
+@pytest.mark.parametrize("name", ["rbf", "matern12", "matern32", "matern52"])
+@pytest.mark.parametrize("r", [1, 9])
+def test_sym_backward_compiled_leaf_sums_give_plain_vjp(rng, name, r):
+    """A compiled leaf sums S0 = sum w f and S1 = sum w h on x prescaled as
+    the kernel scales it (sqrt(-c1 log2 e) for RBF, c1 for a Matern), with
+    no amplitude; ``bwd_sym_coef`` turns them into dL/dcoef, which equals
+    the plain VJP (rtol 1e-10 in float64). The interpreter's sums are
+    dL/dcoef as they are."""
+    kernel, program, coef, xc, v, ct = _sym_bwd_case(rng, name, 300, r)
+    route = kops.sym_route(program)
+    assert route != 0
+    c1 = float(coef[1])
+    scale = np.sqrt(-c1 * kops.LOG2E) if route == kops.OP_RBF else c1
+    sums = torch.zeros(kops.BWD_SYM_LEAF_SUMS, dtype=torch.float64)
+    for rows, cols, half in _sym_bwd_strips(300):
+        w, sq = _sym_bwd_weights(xc, v, ct, rows, cols, half, scale)
+        f, h = _compiled_leaf_terms(route, sq)
+        sums += torch.stack([torch.sum(w * f), torch.sum(w * h)])
+    want, _ = kops.gram_matvec_vjp_reference(program, coef, xc, xc, v, ct,
+                                             need_l2=tk.needs_l2(kernel), want_dx=False)
+    got = kops.bwd_sym_coef(program, coef, sums)
+    assert got.dtype == coef.dtype and got.shape == coef.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10)
+    interp = tops.RBF() + tops.RBF()
+    one = {"sigma": 1.0, "lengthscale": 1.0}
+    iprog, icoefs = kops.encode(interp, (one, one))
+    icoef = kops.coef_vector(icoefs, dtype=torch.float32, device="cpu")
+    isums = torch.arange(kops.MAX_BWD_COEF, dtype=torch.float64)
+    np.testing.assert_array_equal(kops.bwd_sym_coef(iprog, icoef, isums).numpy(),
+                                  np.arange(4, dtype=np.float32))
+
+
+@pytest.mark.parametrize("r,passes,width", [(1, 1, 1), (2, 1, 2), (3, 1, 4), (5, 1, 6),
+                                            (8, 1, 9), (9, 1, 9), (10, 1, 12), (16, 1, 16),
+                                            (17, 2, 9), (33, 3, 12), (64, 4, 16)])
+def test_sym_backward_passes_follow_r(r, passes, width):
+    """The symmetric backward sweep's passes: the fewest of at most 16
+    columns, each the least compiled width that holds its share of r (the
+    training step's r = 9 in one pass of 9)."""
+    assert kops.bwd_sym_passes(r) == (passes, width)
+    assert passes * width >= r and width in kops.BWD_SYM_WIDTHS
+
+
+def test_sym_backward_wrapper_raises_on_cpu_tensors():
+    program, coefs = kops.encode(tops.RBF(), {"sigma": torch.tensor(1.0),
+                                              "lengthscale": torch.tensor(1.0)})
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device="cpu")
+    x = torch.zeros((8, 2), dtype=torch.float32)
+    v = torch.zeros((8, 3), dtype=torch.float32)
+    before = dict(kops.launch_counts)
+    with pytest.raises(ValueError, match="CUDA"):
+        kops.matvec_bwd_sym_cuda(program, coef, x, v, v, need_l2=False)
+    assert kops.launch_counts == before

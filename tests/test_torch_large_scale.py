@@ -11,6 +11,7 @@ the exact LML (or its gradient), as the JAX suite holds its own.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gaussian_process_tpu import gp as jgp
@@ -117,8 +118,8 @@ def test_lml_estimate_tracks_exact(rng):
 def test_surrogate_kernel_path_matches_dense_path(rng):
     """use_kernel=True (the autograd Function whose backward is the backward
     sweep; its plain versions on the CPU) gives the dense path's value and
-    gradient for the same probes, with two backward sweeps per step, each
-    without an x-gradient."""
+    gradient for the same probes, with one backward sweep per step (the
+    matvec on [alpha | z] carries both terms), without an x-gradient."""
     x, y = _problem(rng, n=300)
     k = tops.RBF() + tops.White()
     p = ({"sigma": torch.tensor(1.2, dtype=torch.float64, requires_grad=True),
@@ -142,7 +143,43 @@ def test_surrogate_kernel_path_matches_dense_path(rng):
         g_fused = torch.autograd.grad(fused, leaves)
     finally:
         kops.gram_matvec_vjp_reference = real
-    assert calls == [False, False]
+    assert calls == [False]
     np.testing.assert_allclose(float(fused.detach()), float(dense.detach()), rtol=1e-10)
     for a, b in zip(g_fused, g_dense):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-8)
+
+
+def _two_call_objective(matvec, params, y, alpha, w, z):
+    """The surrogate's terms as the JAX package forms them: the quadratic
+    term from a matvec at alpha, the logdet pullback from a second at z."""
+    quad = -0.5 * (2.0 * torch.dot(y, alpha) - torch.dot(alpha, matvec(params, alpha)))
+    return quad - 0.5 * torch.mean(torch.sum(w * matvec(params, z), dim=0))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_merged_objective_matches_two_call_form(rng, use_kernel):
+    """One matvec on [alpha | z] gives the two-call form's value and
+    gradient (rtol 1e-10) on equal alpha, w and probes, through the kernel
+    path's autograd Function (one backward sweep, against two) and through
+    the dense path; both paths agree with each other too."""
+    x, y = _problem(rng, n=200)
+    k = tops.RBF() + tops.White()
+    p = ({"sigma": torch.tensor(1.2, dtype=torch.float64, requires_grad=True),
+          "lengthscale": torch.tensor(1.4, dtype=torch.float64, requires_grad=True)},
+         {"amplitude": torch.tensor(0.1, dtype=torch.float64, requires_grad=True)})
+    leaves = [p[0]["sigma"], p[0]["lengthscale"], p[1]["amplitude"]]
+    alpha = torch.from_numpy(rng.standard_normal(200))
+    w = torch.from_numpy(rng.standard_normal((200, 8)))
+    z = ls._rademacher((200, 8), _gen(5), y)
+    results = {}
+    for kind in (use_kernel, not use_kernel):
+        matvec = ls._make_matvec(k, x, NOISE, kind)
+        for form, fn in (("merged", ls._objective), ("two_call", _two_call_objective)):
+            val = fn(matvec, p, y, alpha, w, z)
+            results[kind, form] = (float(val.detach()), torch.autograd.grad(val, leaves))
+    want_val, want_grad = results[use_kernel, "two_call"]
+    for key in [(use_kernel, "merged"), (not use_kernel, "merged")]:
+        val, grad = results[key]
+        np.testing.assert_allclose(val, want_val, rtol=1e-10)
+        for a, b in zip(grad, want_grad):
+            np.testing.assert_allclose(float(a), float(b), rtol=1e-10)
