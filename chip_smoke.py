@@ -23,8 +23,14 @@ one JSON line:
    and 3; K3 against K2 at r in {9, 16, 33, 64} and n in {4096, 102400},
    recorded for the sweep rule); the tile gram
    (K1) also within 1e-4 x max(1, max |plain|) absolute, timed at
-   n = 8192 and 102400 x {512, 2048}; its autograd wrapper (K5): gradients
-   within 1e-3 of the plain gram's in float64;
+   n = 8192 and 102400 x {512, 2048} beside a ``fill_`` of the same bytes
+   (the achievable store rate); its autograd wrapper (K5): gradients within
+   1e-3 of the plain gram's in float64, one launch of its backward kernel
+   per backward, and a same-set Matern x-gradient finite and within 2e-4 x
+   max |plain| of the float64 plain VJP; K5's backward alone at n = 8192,
+   d = 4 (params only, and with dx) within 1e-3 per coefficient of the
+   float64 plain VJP, equal bits on a rerun, timed beside its plain version
+   and a ``torch.sum`` of the cotangent (the achievable read rate);
 4. exact: ``GPRegressor(...).fit(x, y).predict(..., solver="cholesky")`` at
    n = 8192, m = 2048, d = 4 in fp32, gated against the same inputs in
    float64 on the card (rel mean 5e-4, rel LML 3e-4, rel var 2e-3); it must
@@ -47,7 +53,9 @@ one JSON line:
    and the full sweep at its own path's shape (n = 4096, r = 65);
 7. train_exact: ``GPRegressor(...).fit(x, y, optimize=True, max_iters=50)``
    (Adam, log transform) at n = 8192 in fp32, gated against the same run in
-   float64 (rel LML 3e-4, rel params 1e-3); it must launch K1 and K5;
+   float64 (rel LML 3e-4, rel params 1e-3); it must launch K1 and K5, one
+   K5 backward per differentiated forward (the device time of 5 steps by
+   kernel, ``torch.profiler``, is taken after phase 12);
 8. train_large: ``opt.tune_large_scale`` at n = 102400 (8 probes, Nyström
    rank 2048, cg_tol 1e-4, 3 steps), which must launch K3 and exactly one
    symmetric K4 sweep per step (one matvec on [alpha | z], r = 9) and no
@@ -152,6 +160,7 @@ CROSS_R, CROSS_N = (9, 16, 33, 64), (4096, 102400)
 SOURCES = {
     "gram": "gaussian_process_tpu_torch/csrc/gram.cu",
     "gram_ad": "gaussian_process_tpu_torch/csrc/gram.cu",
+    "gram_ad_bwd": "gaussian_process_tpu_torch/csrc/gram_bwd.cu",
     "gram_matvec_sym": "gaussian_process_tpu_torch/csrc/gram_matvec_sym.cu",
     "gram_matvec_full": "gaussian_process_tpu_torch/csrc/gram_matvec_full.cuh",
     "gram_matvec_bwd": "gaussian_process_tpu_torch/csrc/gram_matvec_bwd.cu",
@@ -161,6 +170,7 @@ SOURCES = {
 REPLACES = {
     "gram": "gaussian_process_tpu/ops/pallas/kernel_ops.py:141",
     "gram_ad": "gaussian_process_tpu/ops/pallas/kernel_ops.py:695",
+    "gram_ad_bwd": "gaussian_process_tpu/ops/pallas/kernel_ops.py:695",
     "gram_matvec_sym": "gaussian_process_tpu/ops/pallas/kernel_ops.py:391",
     "gram_matvec_full": "gaussian_process_tpu/ops/pallas/kernel_ops.py:303",
     "gram_matvec_bwd": "gaussian_process_tpu/ops/pallas/kernel_ops.py:518",
@@ -303,8 +313,12 @@ def phase_build() -> None:
     lib_path = str(_build.build())
     _build.load()
     seconds = time.perf_counter() - t0
+    ptxas = _ptxas_usage(_build.build_info.get("ptxas", ""))
     emit("build", seconds=seconds, nvcc_seconds=_build.build_info.get("seconds"),
-         ptxas=_ptxas_usage(_build.build_info.get("ptxas", "")),
+         ptxas=ptxas,
+         # K1 and K5's backward: registers and spills of every instantiation
+         gram_ptxas=[r for r in ptxas if r["kernel"].startswith("gram_kernel")],
+         gram_bwd_ptxas=[r for r in ptxas if r["kernel"].startswith("gram_bwd_kernel")],
          k2_sass_mix=_sass_mix(lib_path, K2_SASS),
          k4_sym_sass_mix=_sass_mix(lib_path, K4_SYM_SASS))
 
@@ -511,22 +525,42 @@ def _gram_launch(kernel, params, x1, x2):
                                   white_idx=white_idx, need_l2=tk.needs_l2(kernel))
 
 
-def _in_turns(run, plain, reps: int, plain_reps: int):
-    """plain, kernel, kernel, plain: (best kernel ms, best plain ms, runs)."""
+def _queued_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls enqueued behind a device
+    sleep of 2e8 clocks (about 0.1 s), so the card runs them back to back
+    however long the host takes to launch each (CUDA events, after a
+    warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _in_turns(run, plain, reps: int, plain_reps: int, timer=_time_ms):
+    """plain, kernel, kernel, plain: (best kernel ms, best plain ms, runs);
+    the kernel timed by ``timer``."""
     plain_a = _time_ms(plain, plain_reps)
-    ms_a = _time_ms(run, reps)
-    ms_b = _time_ms(run, reps)
+    ms_a = timer(run, reps)
+    ms_b = timer(run, reps)
     plain_b = _time_ms(plain, plain_reps)
     return {"ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
             "ms_runs": [ms_a, ms_b], "plain_ms_runs": [plain_a, plain_b]}
 
 
 def _gram_ad_check(device, gen: np.random.Generator) -> dict:
-    """K5: gradients of sum(W * gram_ad) through K1's forward against
-    autograd through the plain gram in float64, for RBF + Matern 5/2 at
-    n = 4096, d = 3: the params same-set, the params and both point sets
-    cross-set (a same-set Matern x-gradient puts sqrt at zero on the
-    diagonal, NaN in both versions)."""
+    """K5: gradients of sum(W * gram_ad) (K1's forward, one launch of the
+    backward kernel per backward) against autograd through the plain gram
+    in float64, for RBF + Matern 5/2 at n = 4096, d = 3: the params
+    same-set, the params and both point sets cross-set; then the same-set
+    x-gradient, where autograd through the plain gram puts sqrt at zero on
+    the diagonal (NaN): finite, and against the float64 plain VJP, whose
+    coincident pairs add nothing, as the kernel's."""
     kernel = ops.RBF() + ops.Matern(nu=2.5)
     base = convert.params_from_numpy(({"sigma": 1.0, "lengthscale": 1.5},
                                       {"sigma": 0.7, "lengthscale": 2.0}), device=device)
@@ -543,17 +577,94 @@ def _gram_ad_check(device, gen: np.random.Generator) -> dict:
             inputs = tk.tree_leaves(p) + ([] if same else [a, b])
             return torch.autograd.grad(torch.sum(w.to(dtype) * fn(kernel, p, a, b)), inputs)
 
-        before = kops.launch_counts["gram_ad"]
+        before = dict(kops.launch_counts)
         got = grads(torch.float32, kops.gram_ad)
         torch.cuda.synchronize()
-        require(kops.launch_counts["gram_ad"] == before + 1, "gram_ad launched K1")
+        require(kops.launch_counts["gram_ad"] == before["gram_ad"] + 1, "gram_ad launched K1")
+        require(kops.launch_counts["gram_ad_bwd"] == before["gram_ad_bwd"] + 1,
+                "one K5 backward launch per backward")
         want = grads(torch.float64, kops.gram_reference)
         errs = [float(torch.max(torch.abs(g.double() - r)) / torch.max(torch.abs(r)))
                 for g, r in zip(got, want)]
         abs_err = max(float(torch.max(torch.abs(g.double() - r))) for g, r in zip(got, want))
         require(max(errs) <= GRAD_RTOL, f"K5 gradients within {GRAD_RTOL} (got {max(errs):.3e})")
         rows.append({"same": same, "n": n, "rel_errs": errs, "max_abs_err": abs_err})
+
+    a = x1.detach().requires_grad_(True)
+    before = kops.launch_counts["gram_ad_bwd"]
+    (got,) = torch.autograd.grad(torch.sum(w * kops.gram_ad(kernel, base, a)), [a])
+    torch.cuda.synchronize()
+    require(kops.launch_counts["gram_ad_bwd"] == before + 1, "one K5 backward launch")
+    p64 = tk.tree_map_params(lambda t: t.double(), base)
+    program, coefs, white_idx = kops.gram_program(kernel, p64, True)
+    xc, _ = _centred(x1.double(), None)
+    _, want, _ = kops.gram_vjp_reference(
+        program, kops.coef_vector(coefs, dtype=torch.float64, device=device), xc, None,
+        w.double(), white_idx=white_idx, need_l2=True, want_dx1=True)
+    err, scale = float(torch.max(torch.abs(got.double() - want))), float(torch.max(torch.abs(want)))
+    require(bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale,
+            f"same-set Matern x-gradient finite, within {KERNEL_RTOL} x {scale:.3e} "
+            f"(got {err:.3e})")
+    rows.append({"same": True, "n": n, "x_gradient": True, "rel_err": err / scale,
+                 "max_abs_err": err})
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def _gram_bwd_timed(device, gen: np.random.Generator) -> dict:
+    """K5's backward alone at the exact-training shape, n = 8192, d = 4,
+    RBF(1, 2), same set: params only (a training step's) and with dx, each
+    against the float64 plain VJP (dL/dcoef within BWD_COEF_RTOL per
+    coefficient, dL/dx within KERNEL_RTOL x max |plain|), run twice for
+    equal bits, then timed in turns with the plain version in fp32, beside
+    ``torch.sum`` of the cotangent (the read rate a library reduction
+    reaches on the same bytes)."""
+    n, d = N_EXACT, D
+    x = torch.tensor(gen.uniform(-5, 5, (n, d)), dtype=torch.float32, device=device)
+    ct = torch.tensor(gen.standard_normal((n, n)), dtype=torch.float32, device=device)
+    params = convert.params_from_numpy({"sigma": 1.0, "lengthscale": 2.0}, device=device,
+                                       dtype=torch.float32)
+    program, coefs, white_idx = kops.gram_program(ops.RBF(), params, True)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=device)
+    xc, _ = _centred(x, None)
+    rows = []
+    for want_dx in (False, True):
+        args = (program, coef, xc, None, ct)
+        kw = dict(white_idx=white_idx, need_l2=False, want_dx1=want_dx)
+        run = lambda: kops.gram_bwd_cuda(*args, **kw)  # noqa: E731
+        got, again = run(), run()
+        want = kops.gram_vjp_reference(program, coef.double(), xc.double(), None, ct.double(),
+                                       **kw)
+        coef_rel = float(torch.max(torch.abs(got[0].double() - want[0]) / torch.abs(want[0])))
+        require(coef_rel <= BWD_COEF_RTOL,
+                f"K5 backward dL/dcoef within {BWD_COEF_RTOL} (got {coef_rel:.3e})")
+        require(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
+                "K5 backward twice: equal bits")
+        row = {"dx": want_dx, "coef_rel_err": coef_rel,
+               "max_abs_err": float(torch.max(torch.abs(got[0].double() - want[0])))}
+        if want_dx:
+            err, scale = (float(torch.max(torch.abs(got[1].double() - want[1]))),
+                          float(torch.max(torch.abs(want[1]))))
+            require(err <= KERNEL_RTOL * scale, f"K5 backward dL/dx within {KERNEL_RTOL} x "
+                    f"{scale:.3e} (got {err:.3e})")
+            row["dx_rel_err"] = err / scale
+        del want
+        plain = lambda: kops.gram_vjp_reference(*args, **kw)  # noqa: E731
+        # calls launched one after another are bound by the wrapper's host
+        # work (a launch and about ten small torch ops, call_ms) where the
+        # card needs less: ms is the card's time per call, the kernel and
+        # its finishing ops, with the calls queued
+        row.update(_in_turns(run, plain, 20, 3, timer=_queued_ms))
+        row["call_ms"] = _time_ms(run, 20)
+        # ct read once, x read, dx written; an entry, its two sums (and 4d
+        # FMAs of the x-gradient's row and column sums)
+        row.update(_bound(n * n * (_entry_flops(d) + 4 + (4 * d if want_dx else 0)),
+                          (n * n + n * d + (n * d if want_dx else 0)) * 4))
+        row["read_yardstick_ms"] = _time_ms(lambda: torch.sum(ct), 20)
+        row.update(kernel="gram_ad_bwd", n=n, m=n, d=d)
+        rows.append(row)
+    emit("kernels_gram_bwd_timed", kernel="RBF(sigma=1, lengthscale=2)",
+         plain="gram_vjp_reference in fp32", yardstick="torch.sum(ct)", rows=rows)
+    return rows[0]
 
 
 def phase_kernels_gram(device, gen: np.random.Generator) -> dict:
@@ -599,13 +710,18 @@ def phase_kernels_gram(device, gen: np.random.Generator) -> dict:
         err, scale = _gram_err(launch(), kops.gram_reference(kernel, params, x1, x2))
         row = _in_turns(launch, lambda: kops.gram_reference(kernel, params, x1, x2), 20, 5)
         entries = n * (m or n)
+        out = torch.empty((n, m or n), dtype=torch.float32, device=device)
         row.update(kernel="gram", n=n, m=m or n, d=d, max_abs_err=err,
                    **_bound(entries * _entry_flops(d), (entries + (n + (m or 0)) * d) * 4),
-                   dispatcher_ms=_time_ms(lambda: kops.gram(kernel, params, x1, x2), 20))
+                   dispatcher_ms=_time_ms(lambda: kops.gram(kernel, params, x1, x2), 20),
+                   fill_ms=_time_ms(lambda: out.fill_(0.0), 20))
+        del out
         timed.append(row)
-    emit("kernels_gram_timed", kernel="RBF(sigma=1)", plain="ops.gram in fp32", rows=timed)
+    emit("kernels_gram_timed", kernel="RBF(sigma=1)", plain="ops.gram in fp32",
+         yardstick="fill_ of the same bytes", rows=timed)
 
     check = _gram_ad_check(device, gen)
+    bwd = _gram_bwd_timed(device, gen)
     # forward + params backward at the exact-training shape
     x = torch.tensor(gen.uniform(-5, 5, (N_EXACT, D)), dtype=torch.float32, device=device)
     w = torch.tensor(gen.standard_normal((N_EXACT, N_EXACT)), dtype=torch.float32,
@@ -618,13 +734,15 @@ def phase_kernels_gram(device, gen: np.random.Generator) -> dict:
                                            list(params.values()))
 
     row = _in_turns(fwd_bwd(kops.gram_ad), fwd_bwd(kops.gram_reference), 10, 10)
+    # the same with the calls queued: the card's time, without the host's
+    row["queued_ms"] = _queued_ms(fwd_bwd(kops.gram_ad), 10)
     # the function is (x, params, w) -> two gradients: w is read once, and
     # each entry costs its evaluation and about four flops of its VJP
     row.update(kernel="gram_ad", n=N_EXACT, d=D, max_abs_err=check["max_abs_err"],
                **_bound(N_EXACT ** 2 * (_entry_flops(D) + 4), (N_EXACT ** 2 + N_EXACT * D) * 4))
     emit("gram_ad_check", tolerance=f"gradient max abs err <= {GRAD_RTOL} x max|float64 plain|",
          kernel="RBF + Matern(5/2)", rows=check["rows"], timed_forward_backward=row)
-    return {"gram": timed[0], "gram_ad": row}
+    return {"gram": timed[0], "gram_ad": row, "gram_ad_bwd": bwd}
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -900,7 +1018,7 @@ def _rel_params(a, b) -> float:
     return max(abs(float(a[k]) - float(b[k])) / abs(float(b[k])) for k in b)
 
 
-def phase_train_exact(device, gen: np.random.Generator) -> None:
+def phase_train_exact(device, gen: np.random.Generator):
     n = N_EXACT
     x = gen.uniform(-5.0, 5.0, (n, D))
     y = np.sin(0.9 * x.sum(axis=1)) + 0.02 * gen.standard_normal(n)
@@ -925,7 +1043,20 @@ def phase_train_exact(device, gen: np.random.Generator) -> None:
     # the next 3.5 s)
     for dtype in (torch.float32, torch.float64):
         train(dtype, max_iters=2)
-    model, lml0, seconds = train(torch.float32)
+    # the dense grams whose output autograd differentiates: each must get
+    # exactly one launch of K5's backward
+    differentiated, real_gram_ad = [0], kops.gram_ad
+
+    def counted_gram_ad(*args, **kwargs):
+        out = real_gram_ad(*args, **kwargs)
+        differentiated[0] += int(out.requires_grad)
+        return out
+
+    kops.gram_ad = counted_gram_ad
+    try:
+        model, lml0, seconds = train(torch.float32)
+    finally:
+        kops.gram_ad = real_gram_ad
     counts = dict(kops.launch_counts)
     add_launches(counts)
     ref, ref_lml0, ref_seconds = train(torch.float64)
@@ -938,11 +1069,25 @@ def phase_train_exact(device, gen: np.random.Generator) -> None:
          params={k: float(v) for k, v in model.params.items()},
          params_float64={k: float(v) for k, v in ref.params.items()},
          rel_params=rel_params, gates={"lml": GATE_LML, "params": GATE_PARAMS},
-         launches=counts)
+         launches=counts, differentiated_grams=differentiated[0])
     require(np.isfinite(lml) and lml > lml0, "exact training raised the LML")
     require(counts["gram"] > 0 and counts["gram_ad"] > 0, "exact training launched K1 and K5")
+    require(counts["gram_ad_bwd"] == differentiated[0] > 0,
+            f"one K5 backward per differentiated gram ({counts['gram_ad_bwd']} launches, "
+            f"{differentiated[0]} grams)")
     require(rel_lml <= GATE_LML and rel_params <= GATE_PARAMS,
             "fp32 training within the gates of the float64 run")
+    return torch.tensor(x, dtype=torch.float32), torch.tensor(y, dtype=torch.float32), fit
+
+
+def phase_train_exact_profile(device, x32, y32, fit: dict) -> None:
+    """Where the device time of 5 fp32 steps of ``train_exact`` goes
+    (torch.profiler). It runs last: a profiler session can miss the
+    kernels that the port's library launches, and the ones before it
+    (K3's and K6's breakdowns) read them."""
+    emit("train_exact_profile", steps=5, **_device_breakdown(
+        lambda: GPRegressor(ops.RBF(), noise_variance=5e-4, device=device).fit(
+            x32, y32, **{**fit, "max_iters": 5}), top=8))
 
 
 def phase_train_large(device, gen: np.random.Generator) -> None:
@@ -1226,14 +1371,17 @@ def _chol_K(device, x: torch.Tensor) -> torch.Tensor:
 
 def _device_breakdown(fn, top: int = 6) -> dict:
     """Device time of one call of ``fn`` by kernel name (torch.profiler,
-    after a warm-up): the total and the ``top`` largest items, in ms."""
+    after a warm-up): the total and the ``top`` largest items, and the
+    call's wall time under the profiler, in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     # device events only: operator rows would count their kernels twice
     times = {}
     for ev in prof.events():
@@ -1241,7 +1389,8 @@ def _device_breakdown(fn, top: int = 6) -> dict:
             name = re.sub(r"^(void )?\(anonymous namespace\)::", "", ev.name).split("(")[0][:48]
             times[name] = times.get(name, 0.0) + ev.device_time_total / 1e3
     items = sorted(times.items(), key=lambda kv: -kv[1])
-    return {"device_ms": sum(times.values()), "largest": [[k, v] for k, v in items[:top]]}
+    return {"device_ms": sum(times.values()), "wall_ms": wall_ms,
+            "largest": [[k, v] for k, v in items[:top]]}
 
 
 def _panel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1307,7 +1456,10 @@ def phase_kernels_chol(device, gen: np.random.Generator) -> dict:
                                                              rows[0]["W_vs_plain_abs"]),
                library_ms=_time_ms(library, 50),
                **_bound(2 * b ** 3 / 3, 3 * b * b * 4),
-               device_breakdown=breakdown, diag_kernel_share=diag_ms / breakdown["device_ms"])
+               device_breakdown=breakdown,
+               # None where the trace caught none of the port's kernels
+               diag_kernel_share=(diag_ms / breakdown["device_ms"] if breakdown["device_ms"]
+                                  else None))
     emit("kernels_chol_timed", panel="rbf_chol_panel_1024",
          library="torch.linalg.cholesky_ex + solve_triangular(L, I)", **row)
     return row
@@ -1407,13 +1559,14 @@ def main() -> int:
     phase_exact(device, gen(5))
     phase_matrix_free(device, gen(6))
     timings.update(phase_kernels_bwd(device, gen(7)))
-    phase_train_exact(device, gen(8))
+    train_data = phase_train_exact(device, gen(8))
     phase_train_large(device, gen(9))
     phase_classify_dense(device, gen(10))
     phase_classify_large(device, gen(11))
     phase_estimator_numpy(device, gen(12))
     timings["chol_inv_panel"] = phase_kernels_chol(device, gen(13))
     phase_chol_blocked(device)
+    phase_train_exact_profile(device, *train_data)
     emit("path_launches", launches=PATH_LAUNCHES)
     for name in timings:
         require(PATH_LAUNCHES[name] > 0, f"{name} launched on the main paths")

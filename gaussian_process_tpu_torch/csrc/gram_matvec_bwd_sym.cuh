@@ -45,7 +45,8 @@
 //     sweeps. It sums only what the two coefficient derivatives need, in the
 //     prescaled distance sq': S0 = sum w f and S1 = sum w h, with RBF
 //     f = 2^-sq', h = f sq', and a Matern's s = sqrt(sq'), f = p(s) e^-s,
-//     h = (p'(s) - p(s)) s e^-s. The wrapper turns them into dL/dc0 = S0 and
+//     h = (p'(s) - p(s)) s e^-s (leaf_bwd_terms, shared with the tile
+//     gram's backward, gram_bwd.cu). The wrapper turns them into dL/dc0 = S0 and
 //     dL/dc1 = c0 S1 / (-c1 log2 e) (RBF) or c0 S1 / c1 (Matern)
 //     (kernel_ops.bwd_sym_coef). x is held in registers at a padded width
 //     D = 4 or 8, and above d = 8 read from shared memory in a loop (D = 0).
@@ -142,24 +143,9 @@ __device__ __forceinline__ void bs_entry(float sq, float w, float (&t)[bs_sums<L
                                          int n_instr, int need_l2) {
   if constexpr (LEAF == 0) {
     tree_grad(prog, kid, coef, n_instr, sq, need_l2 ? sqrtf(sq) : 0.0f, w, t);
-  } else if constexpr (LEAF == OP_RBF) {
-    const float we = w * fast_exp2(-sq);
-    t[0] += we;
-    t[1] = fmaf(we, sq, t[1]);
   } else {
-    static_assert(LEAF == OP_MATERN12 || LEAF == OP_MATERN32 || LEAF == OP_MATERN52);
-    const float s = sqrtf(sq);
-    const float we = w * fast_exp2(s * -LOG2E);
-    if constexpr (LEAF == OP_MATERN12) {  // p = 1
-      t[0] += we;
-      t[1] = fmaf(-we, s, t[1]);
-    } else if constexpr (LEAF == OP_MATERN32) {  // p = 1 + s
-      t[0] = fmaf(we, 1.0f + s, t[0]);
-      t[1] = fmaf(-we, s * s, t[1]);
-    } else {  // p = 1 + s + s^2 / 3
-      t[0] = fmaf(we, 1.0f + s + s * s * (1.0f / 3.0f), t[0]);
-      t[1] = fmaf(-we, s * s * (1.0f + s) * (1.0f / 3.0f), t[1]);
-    }
+    float unused;
+    leaf_bwd_terms<LEAF, false>(sq, w, t[0], t[1], unused);
   }
 }
 

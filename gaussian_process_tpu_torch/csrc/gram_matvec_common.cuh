@@ -1,11 +1,11 @@
-// Shared by the tile gram (gram.cu), the forward sweeps (K2,
-// gram_matvec_full.cuh; K3, gram_matvec_sym.cuh) and the backward sweeps
-// (K4: gram_matvec_bwd.cu, the full sweep, and gram_matvec_bwd_sym.cuh,
-// the symmetric one): the postfix program's opcodes, the per-entry leaf
-// arithmetic and its hand-written derivatives, the reverse pass through a
-// program, the compiled leaves of the sweeps, and the tile loaders. Keeping
-// one copy means the backward differentiates exactly the function that the
-// forward evaluates.
+// Shared by the tile gram (K1, gram.cu) and its backward (K5, gram_bwd.cu),
+// the forward sweeps (K2, gram_matvec_full.cuh; K3, gram_matvec_sym.cuh) and
+// the backward sweeps (K4: gram_matvec_bwd.cu, the full sweep, and
+// gram_matvec_bwd_sym.cuh, the symmetric one): the postfix program's
+// opcodes, the per-entry leaf arithmetic and its hand-written derivatives,
+// the reverse pass through a program, the compiled leaves and their
+// backward terms, and the tile loaders. Keeping one copy means the backward
+// differentiates exactly the function that the forward evaluates.
 
 #pragma once
 
@@ -172,10 +172,12 @@ __device__ __forceinline__ void leaf_grad(int op, const float* c, float sq, floa
 
 // ------------------------------------------------------- the reverse pass
 //
-// Shared by the two backward sweeps (gram_matvec_bwd.cu, the full sweep;
-// gram_matvec_bwd_sym.cuh, the symmetric one): a tree of at most
-// MAX_BWD_INSTR instructions and MAX_BWD_COEF coefficients keeps every
-// instruction's forward value per entry.
+// Shared by the backward sweeps (gram_matvec_bwd.cu, the full sweep;
+// gram_matvec_bwd_sym.cuh, the symmetric one) and the tile gram's backward
+// (gram_bwd.cu). tree_grad keeps every instruction's forward value per
+// entry, in arrays of NI instructions and NC coefficients: the sweeps take
+// trees of at most MAX_BWD_INSTR and MAX_BWD_COEF, the tile gram's backward
+// also the forward's MAX_INSTR and MAX_COEF (arrays in local memory).
 
 constexpr int MAX_BWD_INSTR = 16;
 constexpr int MAX_BWD_COEF = 16;
@@ -208,12 +210,13 @@ __device__ __forceinline__ void program_kids(const int* prog, int n_instr, int* 
 // other operand, SCALE multiplies it by its coefficient and adds value x
 // adjoint to that coefficient's gradient, and each leaf adds to its own
 // coefficients (leaf_grad). Adds g dk/dcoef into tacc and returns
-// g dk/dsq; kid is program_kids' table.
+// g dk/dsq; kid is program_kids' table. n_instr <= NI.
+template <int NI = MAX_BWD_INSTR, int NC>
 __device__ __forceinline__ float tree_grad(const int* prog, const int* kid, const float* coef,
                                            int n_instr, float sq, float l2, float g,
-                                           float (&tacc)[MAX_BWD_COEF]) {
-  float val[MAX_BWD_INSTR], adj[MAX_BWD_INSTR], lsq[MAX_BWD_INSTR];
-  float ldc[MAX_BWD_INSTR][LEAF_COEF];
+                                           float (&tacc)[NC]) {
+  float val[NI], adj[NI], lsq[NI];
+  float ldc[NI][LEAF_COEF];
 #pragma unroll 1
   for (int k = 0; k < n_instr; ++k) {
     const int op = prog[2 * k], off = prog[2 * k + 1];
@@ -318,6 +321,43 @@ __device__ __forceinline__ float leaf_entry(float sq, const int* prog, const flo
       return (1.0f + s) * e;
     } else {
       return (1.0f + s + s * s * (1.0f / 3.0f)) * e;
+    }
+  }
+}
+
+// A compiled leaf's backward terms for one entry of weight w (a pair weight
+// or a cotangent) on the prescaled squared distance sq: the sums of the two
+// coefficient derivatives, t0 += w f and t1 += w h, with RBF f = 2^-sq,
+// h = f sq, and a Matern's s = sqrt(sq), f = p(s) e^-s, h = (p' - p) s e^-s
+// (the wrapper rescales them: kernel_ops.bwd_sym_coef); with PHI, also the
+// entry's x-gradient weight q = w phi, where dk/dx_i = phi (x'_i - x'_j)
+// times a constant of the coefficients (kernel_ops.gram_bwd_dx_scale):
+// RBF phi = f; Matern 1/2 phi = e^-s / s (0 at s = 0: coincident points add
+// nothing, leaf_grad's rule), 3/2 e^-s, 5/2 (1 + s) e^-s.
+template <int LEAF, bool PHI>
+__device__ __forceinline__ void leaf_bwd_terms(float sq, float w, float& t0, float& t1,
+                                               float& q) {
+  if constexpr (LEAF == OP_RBF) {
+    const float we = w * fast_exp2(-sq);
+    t0 += we;
+    t1 = fmaf(we, sq, t1);
+    if constexpr (PHI) q = we;
+  } else {
+    static_assert(LEAF == OP_MATERN12 || LEAF == OP_MATERN32 || LEAF == OP_MATERN52);
+    const float s = sqrtf(sq);
+    const float we = w * fast_exp2(s * -LOG2E);
+    if constexpr (LEAF == OP_MATERN12) {  // p = 1
+      t0 += we;
+      t1 = fmaf(-we, s, t1);
+      if constexpr (PHI) q = s > 0.0f ? we / s : 0.0f;
+    } else if constexpr (LEAF == OP_MATERN32) {  // p = 1 + s
+      t0 = fmaf(we, 1.0f + s, t0);
+      t1 = fmaf(-we, s * s, t1);
+      if constexpr (PHI) q = we;
+    } else {  // p = 1 + s + s^2 / 3
+      t0 = fmaf(we, 1.0f + s + s * s * (1.0f / 3.0f), t0);
+      t1 = fmaf(-we, s * s * (1.0f + s) * (1.0f / 3.0f), t1);
+      if constexpr (PHI) q = we * (1.0f + s);
     }
   }
 }

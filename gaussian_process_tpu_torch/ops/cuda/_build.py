@@ -24,8 +24,8 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("chol_panel.cu", "gram.cu", "gram_matvec.cu", "gram_matvec_full_matern.cu",
-           "gram_matvec_bwd.cu", "gram_matvec_bwd_sym.cu", "gram_matvec_bwd_sym_matern.cu",
+SOURCES = ("chol_panel.cu", "gram.cu", "gram_bwd.cu", "gram_matvec.cu",
+           "gram_matvec_full_matern.cu", "gram_matvec_bwd.cu", "gram_matvec_bwd_sym.cu", "gram_matvec_bwd_sym_matern.cu",
            "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
 HEADERS = ("gram_matvec_common.cuh", "gram_matvec_full.cuh", "gram_matvec_sym.cuh",
            "gram_matvec_bwd_sym.cuh")
@@ -129,10 +129,11 @@ def load() -> ctypes.CDLL:
         lib.gm_matvec_bwd_sym.restype = i
         lib.gm_bwd_sym_smem_bytes.argtypes = [i, i]
         lib.gm_bwd_sym_smem_bytes.restype = ctypes.c_size_t
-        lib.gm_gram.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, p]
+        lib.gm_gram.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, i, i, p]
         lib.gm_gram.restype = i
-        lib.gm_gram_smem_bytes.argtypes = [i]
-        lib.gm_gram_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_gram_bwd.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i,
+                                    ctypes.POINTER(ctypes.c_longlong), p]
+        lib.gm_gram_bwd.restype = i
         lib.gm_chol_inv_panel.argtypes = [p, p, p, i, i, p]
         lib.gm_chol_inv_panel.restype = i
         _lib = lib

@@ -2,10 +2,12 @@
 K(x1, x2) @ V on the GPU, differentiable, with their plain versions.
 
 Torch counterpart of the JAX package's ``ops/pallas/kernel_ops.py``
-(``gram``, ``gram_ad``, ``gram_matvec`` and its custom VJP). Four
-hand-written CUDA kernels do the work on a CUDA tensor:
+(``gram``, ``gram_ad``, ``gram_matvec`` and its custom VJP). Hand-written
+CUDA kernels do the work on a CUDA tensor:
 
-- :func:`gram_cuda` (the tile gram, ``csrc/gram.cu``, replaces ``gram``);
+- :func:`gram_cuda` (the tile gram, ``csrc/gram.cu``, replaces ``gram``) and
+  :func:`gram_bwd_cuda` (its backward, ``csrc/gram_bwd.cu``, replaces the
+  backward of ``gram_ad``);
 - :func:`matvec_full_cuda` (full sweep, ``csrc/gram_matvec_full.cuh`` and
   ``csrc/gram_matvec.cu``, replaces ``_matvec_fwd_impl``): 3xTF32 on the
   tensor cores, columns in passes from :func:`full_passes`;
@@ -20,14 +22,15 @@ hand-written CUDA kernels do the work on a CUDA tensor:
 
 :func:`gram` is the port's one dense-gram dispatcher: fp32 CUDA inputs and
 a stationary kernel take :func:`gram_ad` (``_GramFn``: the tile gram
-forward, the plain gram's VJP backward, as the JAX ``gram_ad``), anything
-else the plain ``ops.gram``. :func:`gram_matvec` keeps the JAX package's
-sweep rule, so both packages pick the same sweep for the same inputs, and
-runs through ``_GramMatvecFn``, whose backward gives the gradients in the
-coefficient vector, x1, x2 and V. On a CPU tensor the Functions run the
-plain versions (:func:`gram_reference`, :func:`gram_matvec_reference`,
-:func:`gram_matvec_vjp_reference`); on a CUDA tensor they launch a kernel or
-raise. There is no fallback from one to the other.
+forward and its backward kernel, as the JAX ``gram_ad``), anything else the
+plain ``ops.gram``. :func:`gram_matvec` keeps the JAX package's sweep rule,
+so both packages pick the same sweep for the same inputs, and runs through
+``_GramMatvecFn``, whose backward gives the gradients in the coefficient
+vector, x1, x2 and V. On a CPU tensor the Functions run the plain versions
+(:func:`gram_reference` and :func:`gram_vjp_reference`,
+:func:`gram_matvec_reference`, :func:`gram_matvec_vjp_reference`); on a
+CUDA tensor they launch a kernel or raise. There is no fallback from one to
+the other.
 
 The kernel tree reaches the GPU as a postfix program: each instruction is
 (opcode, offset into a coefficient vector). Leaves push a kernel value
@@ -76,11 +79,15 @@ MAX_BWD_INSTR = 16
 MAX_BWD_COEF = 16
 # the symmetric backward sweep (csrc/gram_matvec_bwd_sym.cuh): its compiled
 # pass widths (columns of V and ct a pass), and the float64 sums a compiled
-# leaf writes per work item (S0, S1; the interpreter writes MAX_BWD_COEF)
+# leaf writes per work item (S0, S1; the interpreter writes MAX_BWD_COEF),
+# as the tile gram's backward (csrc/gram_bwd.cu) does per block
 BWD_SYM_WIDTHS = (1, 2, 4, 6, 9, 12, 16)
 BWD_SYM_LEAF_SUMS = 2
 LOG2E = 1.4426950408889634
 BWD_ROWS = 64  # x1 rows per block of the backward sweep (its partials' count)
+# the tile gram's backward (csrc/gram_bwd.cu): rows and columns of its
+# tiles, which count its partials
+GRAM_BWD_ROWS, GRAM_BWD_COLS = 32, 128
 # the symmetric sweep's fixed point: each column's largest sum is scaled to
 # at most 2^61, two bits below int64's range (csrc/gram_matvec_sym.cuh)
 FIXED_POINT_BITS = 61
@@ -107,10 +114,12 @@ MAX_SMEM_BYTES = 232448
 
 # launches of each kernel, counted where the wrapper launches it: "gram"
 # counts every launch of the tile gram, "gram_ad" those made by its
-# differentiable wrapper, "chol_inv_panel" each call of the panel factor
-# (ops/cuda/chol.py), whatever its count of device launches
-launch_counts = {"gram": 0, "gram_ad": 0, "gram_matvec_full": 0, "gram_matvec_sym": 0,
-                 "gram_matvec_bwd": 0, "gram_matvec_bwd_sym": 0, "chol_inv_panel": 0}
+# differentiable wrapper, "gram_ad_bwd" each launch of its backward,
+# "chol_inv_panel" each call of the panel factor (ops/cuda/chol.py),
+# whatever its count of device launches
+launch_counts = {"gram": 0, "gram_ad": 0, "gram_ad_bwd": 0, "gram_matvec_full": 0,
+                 "gram_matvec_sym": 0, "gram_matvec_bwd": 0, "gram_matvec_bwd_sym": 0,
+                 "chol_inv_panel": 0}
 
 
 def reset_launch_counts() -> None:
@@ -131,7 +140,11 @@ def encode(kernel: _k.Kernel, params: _k.Params) -> Tuple[List[Tuple[int, int]],
     Returns ``(program, coefs)``: ``program`` is a list of
     ``(opcode, coef_offset)`` and ``coefs`` a list of scalars (tensors or
     floats) derived from ``params``. A White leaf inside the tree encodes as
-    zero (``eval_from_distances`` semantics: callers add the white diagonal).
+    zero (``eval_from_distances`` semantics: callers add the white
+    diagonal); it carries its variance as a coefficient that no opcode reads,
+    so that every params leaf reaches the coefficient vector, and a
+    gradient taken through it gives White's amplitude a zero, as autograd
+    through the plain gram does.
     """
     program: List[Tuple[int, int]] = []
     coefs: list = []
@@ -161,7 +174,7 @@ def encode(kernel: _k.Kernel, params: _k.Params) -> Tuple[List[Tuple[int, int]],
             alpha = p["alpha"]
             leaf(OP_RQ, p["amplitude"] ** 2, 0.5 / (alpha * p["lengthscale"] ** 2), -alpha)
         elif isinstance(k, _k.White):
-            leaf(OP_ZERO)
+            leaf(OP_ZERO, p["amplitude"] ** 2)
         elif isinstance(k, (_k.Sum, _k.Product)):
             combine = OP_ADD if isinstance(k, _k.Sum) else OP_MUL
             for idx, (c, pc) in enumerate(zip(k.children, p)):
@@ -467,6 +480,60 @@ def gram_matvec_vjp_reference(
     return d_coef, d_x1
 
 
+def gram_vjp_reference(
+    program,
+    coef: torch.Tensor,
+    x1c: torch.Tensor,
+    x2c: Optional[torch.Tensor],
+    ct: torch.Tensor,
+    *,
+    white_idx: int = -1,
+    need_l2: bool = True,
+    want_dx1: bool = True,
+    want_dx2: bool = False,
+    row_chunk: Optional[int] = None,
+):
+    """Plain PyTorch version of the tile gram's backward (``gram_bwd_cuda``):
+    for L = <ct, K(x1, x2)>, with K the tile gram's function of
+    :func:`gram_program`'s ``(program, coef, white_idx)``, returns
+    (dL/dcoef, dL/dx1 or None, dL/dx2 or None), with the kernel's arithmetic
+    (direct differences, hand-written leaf derivatives, no contribution from
+    a coincident pair to dx). ``x2c=None`` is the same set: White's
+    coefficient gets the trace of ct, and dL/dx1 is the sum of both roles
+    (``want_dx2`` must be False). Row blocks of ``row_chunk`` rows (None:
+    about 2^24 entries each) bound the memory."""
+    same = x2c is None
+    if same and want_dx2:
+        raise ValueError("a same-set gram has one point set: ask for dx1")
+    x2c = x1c if same else x2c
+    n, d = x1c.shape
+    m = x2c.shape[0]
+    if row_chunk is None:
+        row_chunk = max(1, (1 << 24) // m)
+    d_coef = torch.zeros(coef.numel(), dtype=coef.dtype, device=coef.device)
+    d_x1 = torch.empty((n, d), dtype=x1c.dtype, device=x1c.device) if want_dx1 else None
+    col = torch.zeros((m, d), dtype=x1c.dtype, device=x1c.device) if want_dx2 or (
+        same and want_dx1) else None
+    for i in range(0, n, row_chunk):
+        diffs = [x1c[i:i + row_chunk, k:k + 1] - x2c[None, :, k] for k in range(d)]
+        sq = sum(t * t for t in diffs)
+        dc, gsq = _program_vjp(program, coef, sq, torch.sqrt(sq) if need_l2 else None,
+                               ct[i:i + row_chunk])
+        d_coef += dc
+        for k in range(d):
+            if want_dx1:
+                d_x1[i:i + row_chunk, k] = 2.0 * torch.sum(gsq * diffs[k], dim=1)
+            if col is not None:
+                col[:, k] -= 2.0 * torch.sum(gsq * diffs[k], dim=0)
+    if same:
+        if white_idx >= 0:
+            d_coef[white_idx] += torch.sum(torch.diagonal(ct))
+        if want_dx1:
+            d_x1 = d_x1 + col
+        return d_coef, d_x1, None
+    return d_coef, d_x1, col
+
+
 # ------------------------------------------------------------ CUDA wrappers
 
 
@@ -517,15 +584,9 @@ def _forward_args(program, coef, x, smem_bytes):
     return lib, prog
 
 
-def gram_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: Optional[torch.Tensor],
-              *, white_idx: int, need_l2: bool) -> torch.Tensor:
-    """K(x1, x2) (n, m) by the tile-gram CUDA kernel, for the postfix
-    ``program`` over ``coef`` (:func:`gram_program`). Takes centred,
-    contiguous fp32 CUDA tensors x1c (n, d) and x2c (m, d); ``x2c=None`` is
-    the same set, where ``coef[white_idx]`` (if ``white_idx >= 0``) goes on
-    the diagonal. Raises on anything else."""
-    from gaussian_process_tpu_torch.ops.cuda import _build
-
+def _gram_shapes(coef, x1c, x2c, white_idx):
+    """``(x2c, same, n, m, d)`` of a tile-gram call (x2c=None: the same set),
+    after the checks both its kernels share."""
     same = x2c is None
     x2c = x1c if same else x2c
     _check_cuda_f32(coef=coef, x1=x1c, x2=x2c)
@@ -535,22 +596,116 @@ def gram_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: Optional[torc
         raise ValueError(f"x1 has {d} columns, x2 {x2c.shape[1]}")
     if white_idx >= 0 and not same:
         raise ValueError("White's diagonal belongs to a same-set gram only")
+    return x2c, same, n, m, d
+
+
+def _vec16(t: torch.Tensor, m: int) -> int:
+    """1 if the kernel may move t's rows of m floats 16 bytes at a time."""
+    return int(m % 4 == 0 and t.data_ptr() % 16 == 0)
+
+
+def gram_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: Optional[torch.Tensor],
+              *, white_idx: int, need_l2: bool) -> torch.Tensor:
+    """K(x1, x2) (n, m) by the tile-gram CUDA kernel, for the postfix
+    ``program`` over ``coef`` (:func:`gram_program`). Takes centred,
+    contiguous fp32 CUDA tensors x1c (n, d) and x2c (m, d); ``x2c=None`` is
+    the same set, where ``coef[white_idx]`` (if ``white_idx >= 0``) goes on
+    the diagonal. One RBF or Matern leaf runs compiled (:func:`sym_route`),
+    as the matrix-free sweeps evaluate it. Raises on anything else."""
+    from gaussian_process_tpu_torch.ops.cuda import _build
+
+    x2c, same, n, m, d = _gram_shapes(coef, x1c, x2c, white_idx)
     lib = _build.load()
-    smem = lib.gm_gram_smem_bytes(int(d))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
     prog = _prog_tensor(program, MAX_INSTR, MAX_COEF, coef.numel(), x1c.device)
     out = torch.empty((n, m), dtype=torch.float32, device=x1c.device)
     with torch.cuda.device(x1c.device):
         err = lib.gm_gram(
             x1c.data_ptr(), x2c.data_ptr(), out.data_ptr(), prog.data_ptr(), len(program),
-            coef.data_ptr(), coef.numel(), int(white_idx), n, m, d, int(need_l2),
-            _stream(x1c.device),
+            coef.data_ptr(), coef.numel(), int(white_idx), sym_route(program), n, m, d,
+            int(need_l2), _vec16(out, m), _stream(x1c.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_gram launch failed: cudaError {err}")
     launch_counts["gram"] += 1
     return out
+
+
+def gram_bwd_dx_scale(program, coef: torch.Tensor) -> torch.Tensor:
+    """The factor that turns the tile gram's backward's x-gradient sums
+    (``csrc/gram_bwd.cu``: sum q (a - b) over an entry's weights q) into
+    dL/dx1, as a float64 0-d tensor on coef's device: 2 for the interpreter
+    (q = ct dk/dsq on unscaled x). A compiled leaf's q = ct phi on x
+    prescaled by s (``leaf_bwd_terms``) gives dk/dx_i = 2 dk/dsq (x_i - x_j):
+    RBF 2 c0 c1 / s with s = sqrt(-c1 log2 e); a Matern's x' = c1 x,
+    -c0 c1 (1/2 and 3/2) or -c0 c1 / 3 (5/2)."""
+    route = sym_route(program)
+    if route == 0:
+        return torch.tensor(2.0, dtype=torch.float64, device=coef.device)
+    c0, c1 = coef[0].to(torch.float64), coef[1].to(torch.float64)
+    if route == OP_RBF:
+        return 2.0 * c0 * c1 / torch.sqrt(-c1 * LOG2E)
+    return -c0 * c1 / (3.0 if route == OP_MATERN52 else 1.0)
+
+
+def gram_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: Optional[torch.Tensor],
+                  ct: torch.Tensor, *, white_idx: int, need_l2: bool, want_dx1: bool,
+                  want_dx2: bool = False):
+    """The tile gram's backward by the CUDA kernel (``csrc/gram_bwd.cu``):
+    for L = <ct, K(x1, x2)>, (dL/dcoef, dL/dx1 or None, dL/dx2 or None),
+    the function of :func:`gram_vjp_reference`. Centred contiguous fp32 CUDA
+    tensors x1c (n, d), x2c (m, d) or None (the same set: White's
+    coefficient gets the trace of ct, dL/dx1 sums both roles), ct (n, m);
+    any tree the forward takes. The route (:func:`sym_route`) is chosen
+    here; the kernel sizes its grid to the card (it reports its count of
+    blocks). It writes one float64 partial per block and sum, and fp32
+    partials of the x-gradients per tile, with no atomics; they are summed
+    here in a fixed order and rescaled (:func:`bwd_sym_coef`,
+    :func:`gram_bwd_dx_scale`), so a rerun gives equal bits."""
+    from gaussian_process_tpu_torch.ops.cuda import _build
+
+    x2c, same, n, m, d = _gram_shapes(coef, x1c, x2c, white_idx)
+    _check_cuda_f32(ct=ct)
+    if ct.shape != (n, m):
+        raise ValueError(f"ct shape {tuple(ct.shape)} is not ({n}, {m})")
+    if same and want_dx2:
+        raise ValueError("a same-set gram has one point set: ask for dx1")
+    lib = _build.load()
+    prog = _prog_tensor(program, MAX_INSTR, MAX_COEF, coef.numel(), x1c.device)
+    route = sym_route(program)
+    # a partial row per block (at most one a tile): the route's sums, the trace
+    width = (BWD_SYM_LEAF_SUMS if route else coef.numel()) + 1
+    tiles = -(-n // GRAM_BWD_ROWS) * -(-m // GRAM_BWD_COLS)
+    part = torch.empty((tiles, width), dtype=torch.float64, device=x1c.device)
+    blocks = ctypes.c_longlong(0)
+    # row sums of x1's entries per column tile, column sums per row tile;
+    # a same-set dx needs both roles
+    rows_wanted, cols_wanted = want_dx1, want_dx2 or (same and want_dx1)
+    pdx1 = torch.empty((-(-m // GRAM_BWD_COLS), n, d), dtype=torch.float32,
+                       device=x1c.device) if rows_wanted else None
+    pdx2 = torch.empty((-(-n // GRAM_BWD_ROWS), m, d), dtype=torch.float32,
+                       device=x1c.device) if cols_wanted else None
+    with torch.cuda.device(x1c.device):
+        err = lib.gm_gram_bwd(
+            x1c.data_ptr(), x2c.data_ptr(), ct.data_ptr(), part.data_ptr(),
+            None if pdx1 is None else pdx1.data_ptr(), None if pdx2 is None else pdx2.data_ptr(),
+            prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(), int(white_idx), route,
+            n, m, d, int(need_l2), _vec16(ct, m), ctypes.byref(blocks), _stream(x1c.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"gm_gram_bwd launch failed: cudaError {err}")
+    launch_counts["gram_ad_bwd"] += 1
+    sums = part[:blocks.value].sum(dim=0)
+    d_coef = bwd_sym_coef(program, coef, sums[:width - 1])
+    if white_idx >= 0:
+        d_coef[white_idx] += sums[width - 1].to(d_coef.dtype)
+    if pdx1 is None and pdx2 is None:
+        return d_coef, None, None
+    scale = gram_bwd_dx_scale(program, coef).to(torch.float32)
+    d_x1 = scale * pdx1.sum(dim=0) if rows_wanted else None
+    d_x2 = -scale * pdx2.sum(dim=0) if cols_wanted else None
+    if same:
+        return d_coef, (d_x1 + d_x2 if want_dx1 else None), None
+    return d_coef, d_x1, d_x2
 
 
 def full_passes(r: int) -> Tuple[int, int]:
@@ -703,19 +858,24 @@ def bwd_sym_passes(r: int) -> Tuple[int, int]:
 
 
 def bwd_sym_coef(program, coef: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
-    """dL/dcoef, in coef's dtype, from the symmetric backward sweep's
-    float64 sums (``csrc/gram_matvec_bwd_sym.cuh``). The interpreter's sums
-    are dL/dcoef itself. A compiled leaf c0 k'(x') (:func:`sym_route`) sums
+    """dL/dcoef, in coef's dtype, from the float64 sums of the symmetric
+    backward sweep (``csrc/gram_matvec_bwd_sym.cuh``) or of the tile gram's
+    backward (``csrc/gram_bwd.cu``). The interpreter's sums are dL/dcoef
+    itself. A compiled leaf c0 k'(x') (:func:`sym_route`) sums
     S0 = sum w f and S1 = sum w h over its prescaled distances, so
     dL/dc0 = S0 and dL/dc1 = c0 S1 / (-c1 log2 e) for RBF (x scaled by
-    sqrt(-c1 log2 e)) or c0 S1 / c1 for a Matern (x scaled by c1). Torch
-    ops on the device, no host round trip."""
+    sqrt(-c1 log2 e)) or c0 S1 / c1 for a Matern (x scaled by c1); any
+    coefficient after the leaf's two (a same-set gram's White variance)
+    gets zero. Torch ops on the device, no host round trip."""
     route = sym_route(program)
     if route == 0:
         return sums[:coef.numel()].to(coef.dtype)
     c0, c1 = coef[0].to(torch.float64), coef[1].to(torch.float64)
     per_c1 = -c1 * LOG2E if route == OP_RBF else c1
-    return torch.stack([sums[0], c0 * sums[1] / per_c1]).to(coef.dtype)
+    d_coef = torch.stack([sums[0], c0 * sums[1] / per_c1])
+    if coef.numel() > 2:
+        d_coef = torch.cat([d_coef, d_coef.new_zeros(coef.numel() - 2)])
+    return d_coef.to(coef.dtype)
 
 
 @functools.lru_cache(maxsize=32)
@@ -850,76 +1010,85 @@ class _GramSpec(NamedTuple):
     """What ``_GramFn`` needs besides its tensors."""
 
     kernel: _k.Kernel
-    structure: _k.Params  # the params tree the leaves are unflattened into
+    params: _k.Params  # the plain forward evaluates them
+    program: tuple  # gram_program's postfix program
+    white_idx: int
+    need_l2: bool
     method: str  # the plain gram's distance method
 
 
-def _gram_forward(spec: _GramSpec, params, x1, x2) -> torch.Tensor:
+def _gram_forward(spec: _GramSpec, coef, x1, x2) -> torch.Tensor:
     """``_GramFn``'s forward: the tile gram on a CUDA tensor (centred on
     mean(x1)), ``ops.gram`` on a CPU tensor."""
     if not x1.is_cuda:
-        return gram_reference(spec.kernel, params, x1, x2, method=spec.method)
-    program, coefs, white_idx = gram_program(spec.kernel, params, x2 is None)
-    coef = coef_vector(coefs, dtype=torch.float32, device=x1.device)
-    center = torch.mean(x1, dim=0, keepdim=True)
-    x1c = (x1 - center).contiguous()
-    x2c = None if x2 is None else (x2 - center).contiguous()
-    out = gram_cuda(program, coef, x1c, x2c, white_idx=white_idx,
-                    need_l2=_k.needs_l2(spec.kernel))
+        return gram_reference(spec.kernel, spec.params, x1, x2, method=spec.method)
+    x1c, x2c = _centred(x1, x2)
+    out = gram_cuda(spec.program, coef, x1c, x2c, white_idx=spec.white_idx,
+                    need_l2=spec.need_l2)
     launch_counts["gram_ad"] += 1
     return out
 
 
+def _centred(x1, x2):
+    """x1 and x2 (or None) centred on mean(x1), contiguous."""
+    center = torch.mean(x1, dim=0, keepdim=True)
+    return ((x1 - center).contiguous(),
+            None if x2 is None else (x2 - center).contiguous())
+
+
 class _GramFn(torch.autograd.Function):
-    """K(x1, x2) (``x2=None``: the same set), differentiable in x1, x2 and
-    the params leaves: the JAX package's ``gram_ad``. The forward launches
-    the tile gram on a CUDA tensor and is ``ops.gram`` on a CPU tensor; the
-    backward is the VJP of the plain ``ops.gram`` expression, recomputed
-    under ``torch.enable_grad()``, as the JAX ``gram_ad``'s backward is
-    ``jax.vjp`` of the XLA gram. It runs only when something is
-    differentiated; a same-set call has no x2 to differentiate."""
+    """K(x1, x2) (``x2=None``: the same set), differentiable in the
+    coefficient vector and the points: the JAX package's ``gram_ad``. The
+    forward launches the tile gram on a CUDA tensor and is ``ops.gram`` on
+    a CPU tensor. The backward gives d_coef, d_x1 and d_x2, each only if
+    asked, from one launch of the tile gram's backward kernel on a CUDA
+    tensor (:func:`gram_bwd_cuda`) and from its plain version on a CPU
+    tensor (:func:`gram_vjp_reference`); autograd carries d_coef on to the
+    params. It differentiates the tile gram's function, whose White leaves
+    below the top-level sum are zero (the dispatcher sends such trees to
+    the plain gram, and so does ``gram_ad`` on a CPU tensor). A same-set
+    call has no x2 to differentiate."""
 
     @staticmethod
-    def forward(ctx, spec: _GramSpec, x1, x2, *leaves):
+    def forward(ctx, coef, x1, x2, spec: _GramSpec):
+        ctx.save_for_backward(coef, x1, x2)
         ctx.spec = spec
-        ctx.save_for_backward(x1, x2, *leaves)
-        return _gram_forward(spec, _k.tree_unflatten(spec.structure, leaves), x1, x2)
+        return _gram_forward(spec, coef, x1, x2)
 
     @staticmethod
     def backward(ctx, ct):
+        coef, x1, x2 = ctx.saved_tensors
         spec = ctx.spec
-        saved = ctx.saved_tensors
-        want = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            inputs = [None if t is None else t.detach().requires_grad_(w)
-                      for t, w in zip(saved, want)]
-            K = gram_reference(spec.kernel, _k.tree_unflatten(spec.structure, inputs[2:]),
-                               inputs[0], inputs[1], method=spec.method)
-            wanted = [t for t, w in zip(inputs, want) if w]
-            grads = iter(torch.autograd.grad(K, wanted, ct, allow_unused=True))
-        out = []
-        for t, w in zip(inputs, want):
-            g = next(grads) if w else None
-            out.append(torch.zeros_like(t) if w and g is None else g)
-        return (None, *out)
+        want_coef, want_x1, want_x2 = ctx.needs_input_grad[:3]
+        x1c, x2c = _centred(x1.detach(), None if x2 is None else x2.detach())
+        vjp = gram_bwd_cuda if x1.is_cuda else gram_vjp_reference
+        d_coef, d_x1, d_x2 = vjp(spec.program, coef, x1c, x2c, ct.contiguous(),
+                                 white_idx=spec.white_idx, need_l2=spec.need_l2,
+                                 want_dx1=want_x1, want_dx2=want_x2)
+        return (d_coef if want_coef else None), d_x1, d_x2, None
 
 
 def gram_ad(kernel: _k.Kernel, params: _k.Params, x1: torch.Tensor,
             x2: Optional[torch.Tensor] = None, *, method: str = "dot") -> torch.Tensor:
     """Differentiable dense gram through the tile gram (``_GramFn``): the
     JAX package's ``gram_ad``. Stationary kernels; on a CUDA tensor fp32
-    only (it raises otherwise). ``method`` is the plain gram's (the CPU
-    forward and every backward); the tile gram forms the squared distance
-    from direct differences on centred inputs."""
+    only (it raises otherwise). The coefficient vector is built from the
+    params here, so autograd reaches every hyperparameter through it.
+    ``method`` is the plain gram's (the CPU forward); the tile gram and both
+    backwards form the squared distance from direct differences on centred
+    inputs."""
     if not _k.is_stationary(kernel):
         raise ValueError("gram_ad supports stationary kernels only")
     x1 = _k._dist._as_2d(x1)
     x2 = None if x2 is None else _k._dist._as_2d(x2)
-    structure = params
-    leaves = [leaf if isinstance(leaf, torch.Tensor)
-              else torch.tensor(leaf, dtype=torch.float64, device=x1.device)
-              for leaf in _k.tree_leaves(params)]
-    return _GramFn.apply(_GramSpec(kernel, structure, method), x1, x2, *leaves)
+    if nested_white(kernel) and not x1.is_cuda:
+        # the plain gram places such a White leaf, the tile gram's function
+        # (which both backwards differentiate) does not
+        return gram_reference(kernel, params, x1, x2, method=method)
+    program, coefs, white_idx = gram_program(kernel, params, x2 is None)
+    coef = coef_vector(coefs, dtype=x1.dtype, device=x1.device)
+    spec = _GramSpec(kernel, params, tuple(program), white_idx, _k.needs_l2(kernel), method)
+    return _GramFn.apply(coef, x1, x2, spec)
 
 
 class _Spec(NamedTuple):

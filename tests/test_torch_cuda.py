@@ -498,6 +498,137 @@ def test_gram_ad_gradient_on_card(cuda, same):
         assert err <= 1e-3 * float(r.abs().max())
 
 
+# K5's backward (gm_gram_bwd): the families of the tile gram, and a tree
+# past the backward sweeps' 16 instructions (six scaled RBFs: 17
+# instructions, 18 coefficients), which takes the instantiation sized to
+# the forward's limits
+GRAM_BWD_FAMILIES = {
+    **{k: GRAM_FAMILIES[k] for k in ("rbf", "matern12", "matern32", "matern52", "periodic",
+                                     "rq", "rbf_white", "co2")},
+    "six_scaled_rbfs": (
+        ops.Sum(children=tuple(ops.Scaled(base=ops.RBF()) for _ in range(6))),
+        tuple({"amplitude": 0.5 + 0.1 * i, "base": {"sigma": 1.0 + 0.2 * i,
+                                                    "lengthscale": 0.6 + 0.3 * i}}
+              for i in range(6))),
+}
+# (n, m): cross-set and same-set (m None), ragged and whole tiles
+GRAM_BWD_SHAPES = [(500, 300), (3001, 2049), (4096, None), (3001, None)]
+
+
+def _gram_bwd_inputs(cuda, name, n, m, seed, d=3):
+    """A family's program and fp32 coefficients, centred fp32 points and a
+    cotangent on the card."""
+    rng = np.random.default_rng(seed)
+    kernel, params = GRAM_BWD_FAMILIES[name]
+    program, coefs, white_idx = kops.gram_program(kernel, _params(params, cuda), m is None)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=cuda)
+    x1 = torch.tensor(rng.uniform(-3, 3, (n, d)), dtype=torch.float32, device=cuda)
+    x2 = None if m is None else torch.tensor(rng.uniform(-3, 3, (m, d)), dtype=torch.float32,
+                                             device=cuda)
+    x1c, x2c = kops._centred(x1, x2)
+    ct = torch.tensor(rng.standard_normal((n, n if m is None else m)), dtype=torch.float32,
+                      device=cuda)
+    return program, coef, x1c, x2c, ct, dict(white_idx=white_idx,
+                                             need_l2=kops._k.needs_l2(kernel))
+
+
+@pytest.mark.parametrize("name", sorted(GRAM_BWD_FAMILIES))
+@pytest.mark.parametrize("n,m", GRAM_BWD_SHAPES)
+@pytest.mark.parametrize("want_dx", [False, True])
+def test_gram_backward_matches_plain_vjp_on_card(cuda, name, n, m, want_dx):
+    """K5's backward against the float64 plain VJP on the same fp32 inputs:
+    dL/dcoef within 1e-3 per coefficient (K4's bound: fp32 entry products,
+    float64 sums), dL/dx within 2e-4 x max |plain| (the forward kernels'
+    bound; a same-set Matern or Periodic x-gradient is finite, coincident
+    pairs adding nothing); one launch counted."""
+    program, coef, x1c, x2c, ct, kw = _gram_bwd_inputs(cuda, name, n, m, n + (m or 0))
+    want_dx2 = want_dx and m is not None
+    before = kops.launch_counts["gram_ad_bwd"]
+    got = kops.gram_bwd_cuda(program, coef, x1c, x2c, ct, want_dx1=want_dx, want_dx2=want_dx2,
+                             **kw)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram_ad_bwd"] == before + 1
+    want = kops.gram_vjp_reference(program, coef.double(), x1c.double(),
+                                   None if x2c is None else x2c.double(), ct.double(),
+                                   want_dx1=want_dx, want_dx2=want_dx2, **kw)
+    assert got[0].dtype == torch.float32 and got[0].shape == coef.shape
+    used = want[0] != 0  # coefficients no opcode reads (a White leaf's) get exact zeros
+    assert bool(torch.all(got[0][~used] == 0))
+    assert float(torch.max(torch.abs(got[0].double() - want[0])[used]
+                           / torch.abs(want[0][used]))) <= 1e-3
+    for g, w in zip(got[1:], want[1:]):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert bool(torch.isfinite(g).all())
+            assert float(torch.max(torch.abs(g.double() - w))) <= \
+                2e-4 * float(torch.max(torch.abs(w)))
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2", "six_scaled_rbfs"])
+@pytest.mark.parametrize("want_dx", [False, True])
+def test_gram_backward_is_bitwise_reproducible_on_card(cuda, name, want_dx):
+    """One float64 partial per block and sum, fp32 dx partials per tile, no
+    atomics, a fixed order of the sums: two runs give equal bits."""
+    program, coef, x1c, x2c, ct, kw = _gram_bwd_inputs(cuda, name, 3001, 2049, 5)
+    runs = [kops.gram_bwd_cuda(program, coef, x1c, x2c, ct, want_dx1=want_dx,
+                               want_dx2=want_dx, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2"])
+def test_gram_backward_propagates_nan_on_card(cuda, name):
+    """A NaN in ct reaches the gradient of every coefficient the tree reads
+    and the x-gradients of its row and column, as in the plain VJP."""
+    program, coef, x1c, x2c, ct, kw = _gram_bwd_inputs(cuda, name, 700, None, 3)
+    ct[123, 456] = float("nan")
+    d_coef, d_x, _ = kops.gram_bwd_cuda(program, coef, x1c, None, ct, want_dx1=True, **kw)
+    want, _, _ = kops.gram_vjp_reference(program, coef.double(), x1c.double(), None,
+                                         ct.double(), want_dx1=False, **kw)
+    assert torch.equal(torch.isnan(d_coef), torch.isnan(want))
+    assert bool(torch.isnan(d_coef).any())
+    assert bool(torch.isnan(d_x[123]).all() and torch.isnan(d_x[456]).all())
+
+
+def test_gram_ad_backward_launches_the_kernel_once_on_card(cuda, monkeypatch):
+    """``gram_ad``'s backward is one launch of K5's backward: no plain gram
+    is recomputed (``gram_reference`` raises if called), and an expanded
+    cotangent (``.sum().backward()``, stride 0) is made contiguous and
+    gives the gradient of a dense one."""
+    kernel, base = GRAM_FAMILIES["rbf_white"]
+    x = torch.tensor(np.random.default_rng(4).uniform(-3, 3, (600, 2)), dtype=torch.float32,
+                     device=cuda)
+    p = _leaves_with_grad(_params(base, cuda), torch.float32)
+    out = kops.gram_ad(kernel, p, x)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the backward recomputed the plain gram")
+
+    monkeypatch.setattr(kops, "gram_reference", no_plain)
+    before = dict(kops.launch_counts)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram_ad_bwd"] == before["gram_ad_bwd"] + 1
+    assert kops.launch_counts["gram"] == before["gram"]
+    monkeypatch.undo()
+    leaves = kops._k.tree_leaves(p)
+    p2 = _leaves_with_grad(_params(base, cuda), torch.float32)
+    dense = torch.autograd.grad(torch.sum(torch.ones((600, 600), device=cuda)
+                                          * kops.gram_ad(kernel, p2, x)),
+                                kops._k.tree_leaves(p2))
+    for leaf, g in zip(leaves, dense):
+        assert torch.equal(leaf.grad, g)
+
+
+def test_gram_backward_refuses_float64_on_card(cuda):
+    program, coef, x1c, x2c, ct, kw = _gram_bwd_inputs(cuda, "rbf", 64, None, 1)
+    with pytest.raises(ValueError, match="float32"):
+        kops.gram_bwd_cuda(program, coef, x1c.double(), None, ct, want_dx1=False, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        kops.gram_bwd_cuda(program, coef, x1c, None, ct.double(), want_dx1=False, **kw)
+
+
 def test_dispatcher_rule_on_card(cuda):
     """fp32 stationary -> the tile gram; float64, a non-stationary kernel
     and a White leaf below the top-level sum -> the plain gram."""
