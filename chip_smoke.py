@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GP regression serving and training paths, its
-Laplace classification paths and its blocked Cholesky once on one NVIDIA
-GPU.
+Laplace classification paths, its blocked Cholesky, its segmented solvers
+and its CO2 pipeline once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -94,7 +94,39 @@ one JSON line:
     ``torch.linalg`` on the same K, each timed, with its backward error
     max |L L^T - K| / max |K| (in float64) and its rel LML (reported, not
     gated). Gate: the K6-panel factor is finite with a backward error within
-    2x the library-panel factor's + 1e-7.
+    2x the library-panel factor's + 1e-7;
+13. segmented: ``gp.posterior_cg_segmented`` on phase 5's problem (n =
+    102400, d = 4, RBF(1, 2), noise 1e-2, tol 1e-3, Nyström rank 2048) with
+    m = 64 in chunks of 8 and at most 2 CG iterations a segment: every
+    chunk's final residual within tol x its largest right-hand-side column
+    norm, K3 and K1 launched; a run stopped after the second segment of
+    chunk 3, its snapshot saved by ``utils.checkpoint`` and restored into a
+    zeroed template, resumed in a new call with the uninterrupted run's
+    total iterations and bitwise-equal means and variances (K3's
+    fixed-point sum); at n = 4096 the same pipeline within 1e-2 of the
+    exact path;
+14. segmented_laplace: ``gp.laplace_fit_cg_segmented`` on phase 10's
+    binary problem (n = 102400, d = 2, RBF(1, 1), rank 512, cg_tol 1e-4),
+    one Newton step a call: it converges through K3; a run stopped after 3
+    steps, its iterate saved and restored, continued by ``resume_f`` to the
+    uninterrupted mode with equal bits and Newton count; its
+    ``predict_binary_cg`` within 5e-3 of ``laplace_fit_cg``'s;
+15. co2: the vendored Mauna Loa record (526 points) at the book
+    hyperparameters: (a) ``gp.whitened_posterior`` in fp32 over the 20-year
+    monthly grid against float64 ``gp.posterior`` on the card (mean within
+    1.0 ppm, std within 0.1 ppm, K1 launched for K and K_s; K1 timed at
+    this shape); (b) ``gp.make_whitened_lml_fn`` over 500 candidates in the
+    0.5x-1.5x book box in fp32 (exactly 500 K1 launches) and float64 (within
+    rtol 1e-10 of the serial ``whitened_lml``, and 1e-8 of the direct LML
+    at the book values), the fp32 drift reported; (c)
+    ``opt.tune_bayesian_opt`` on the float64 whitened LML, PI, EI, UCB and
+    TS, 10 iterations x 500 candidates, seed 0: EI, UCB and TS within 5% of
+    the book LML, the best of all above it, and PI stopped after its first
+    proposal (its unit-RBF surrogate makes that proposal the first
+    candidate, so its best is one uniform draw); (d)
+    ``examples_torch/co2.py --skip-bo`` and
+    ``examples_torch/tune_hyperparms_regression.py`` as subprocesses, each
+    exiting 0 with a finite LML in its ``run.jsonl``.
 
 Then a line ``{"kernels": [...]}``: per kernel its source, the TPU kernel it
 replaces, its launches on the main paths, its error against its plain
@@ -104,8 +136,9 @@ for K2 its TF32 products at 495 TFLOP/s against its entries at 67) and,
 where one PyTorch call computes the same function, that call's time.
 Last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; so does a machine without CUDA. Each phase draws its inputs from
-its own generator, seeded by its place in the run, so a phase that draws
-more leaves the others' inputs as they were.
+its own generator, ``np.random.default_rng([0, k])`` with k fixed for the
+phase (phases 13-15 take k = 13, 14, 15), so a phase that draws more
+leaves the others' inputs as they were.
 """
 
 from __future__ import annotations
@@ -115,6 +148,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -128,6 +162,8 @@ from gaussian_process_tpu_torch.ops import kernels as tk
 from gaussian_process_tpu_torch.ops.cuda import _build
 from gaussian_process_tpu_torch.ops.cuda import chol as kchol
 from gaussian_process_tpu_torch.ops.cuda import kernel_ops as kops
+from gaussian_process_tpu_torch.utils import checkpoint, datasets
+from gaussian_process_tpu_torch.utils.logging import read_jsonl
 
 BOOK = [66, 67, 2.4, 90, 1.3, 0.66, 1.2, 0.78, 0.18, 1.6, 0.19]
 KERNEL_RTOL = 2e-4  # fp32 kernel vs plain: max abs err / max |plain|
@@ -202,6 +238,18 @@ GATE_PROB, GATE_LABELS = 5e-3, 0.999
 N_CHOL, BLOCK_CHOL, NOISE_CHOL = 10240, 1024, 5e-4
 CHOL_PANELS = (1024, 96, 640)  # K6's checks besides the path's panel: b = 96 is ragged
 CHOL_PANEL_RTOL = 1e-5  # K6 vs float64 (tests/test_blocked.py:166-167), where the plain meets it
+# the segmented solver: phase 5's problem, m = 64 in chunks of 8, at most 2
+# CG iterations a segment: the chunks after the first converge in 5-8
+# iterations here (a segment of 6 left some chunks, chunk 3 among them,
+# with one segment), so every chunk resumes mid-solve and the run stopped
+# after the second segment of chunk 3 stops mid-solve. The segmented
+# Laplace fit is stopped after 3 Newton steps.
+SEG_M, SEG_CHUNK, SEG_ITERS, SEG_TOL, SEG_STOP_CHUNK, SEG_RANK = 64, 8, 2, 1e-3, 3, 2048
+LAPLACE_STOP = 3
+# CO2: the book hyperparameters, the reference's noise, 500 candidates a
+# batch and a BO iteration, and the candidates held against the serial LML
+THETA_BOOK = np.array(BOOK, dtype=np.float64)
+CO2_NOISE, CO2_CANDIDATES, CO2_SERIAL = 5e-4, 500, 8
 # the H100 SXM's published peaks: fp32 outside the tensor cores, dense TF32
 # on them, and HBM
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
@@ -1547,7 +1595,281 @@ def phase_chol_blocked(device) -> None:
             f"K6-panel backward error {rows['kernel_panels']['backward_err']:.3e} <= {gate:.3e}")
 
 
+# ------------------------------------------------ segmented solvers and CO2
+
+
+class _Stop(Exception):
+    """Raised from a callback to stop a run part way, as a preemption."""
+
+
+def _zeroed(tree):
+    """A template shaped like ``tree`` holding zeros: what a fresh process
+    has before it restores a checkpoint."""
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros_like(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zeroed(c) for c in tree))
+    if isinstance(tree, tuple):
+        return tuple(_zeroed(c) for c in tree)
+    return tree
+
+
+def phase_segmented(device, gen: np.random.Generator, tmp: Path) -> None:
+    """``gp.posterior_cg_segmented`` at phase 5's inputs and m = 64 in
+    chunks of 8, ``segment_iters`` 2: every chunk converged, K3 and K1
+    launched; a run stopped after the second segment of chunk 3, its
+    snapshot saved by ``utils.checkpoint`` and restored into a zeroed
+    template, resumed in a new call with the uninterrupted run's total
+    iterations and bits; at n = 4096 the same pipeline against the exact
+    path."""
+    kernel = ops.RBF()
+    x, y, params = _cg_problem(device, gen, N_BIG)
+    xs = x[:SEG_M] + 0.1
+    kw = dict(noise_variance=1e-2, tol=SEG_TOL, max_iters=120, segment_iters=SEG_ITERS,
+              test_chunk=SEG_CHUNK, precond_rank=SEG_RANK)
+    finals = {}
+    post, seconds, counts = _timed(lambda: gp.posterior_cg_segmented(
+        kernel, params, x, y, xs, checkpoint_cb=finals.__setitem__, **kw))
+    require(post.mean.shape == (SEG_M,) and bool(torch.isfinite(post.mean).all())
+            and bool(torch.isfinite(post.var).all()), "finite segmented outputs")
+    chunks = []
+    for c, state in sorted(finals.items()):
+        Ks = kops.gram(kernel, params, x, xs[c * SEG_CHUNK:(c + 1) * SEG_CHUNK])
+        rhs = (torch.cat([y[:, None], Ks], dim=1) if c == 0 else Ks).double()
+        stop = SEG_TOL * float(torch.sqrt(torch.max(torch.sum(rhs * rhs, dim=0))))
+        chunks.append({"chunk": c, "iters": state.iters, "resnorm": float(state.resnorm),
+                       "stop": stop})
+    emit("segmented", n=N_BIG, m=SEG_M, d=D, rank=SEG_RANK, tol=SEG_TOL, test_chunk=SEG_CHUNK,
+         segment_iters=SEG_ITERS, iters=post.iters, seconds=seconds, chunks=chunks,
+         launches=counts)
+    require(len(chunks) == SEG_M // SEG_CHUNK, "every chunk solved")
+    for row in chunks:
+        require(row["resnorm"] <= row["stop"], f"chunk {row['chunk']} converged")
+    require(counts["gram_matvec_sym"] > 0 and counts["gram"] > 0,
+            "the segmented solve launched K3 and K1")
+
+    # stopped after the second segment of chunk 3, resumed from disk
+    path = str(tmp / "segmented")
+    seen = []
+
+    def stop_cb(snap):
+        if snap.chunk == SEG_STOP_CHUNK:
+            seen.append(snap)
+            if len(seen) == 2:
+                checkpoint.save(path, snap)
+                raise _Stop
+
+    t0 = time.perf_counter()
+    try:
+        gp.posterior_cg_segmented(kernel, params, x, y, xs, snapshot_cb=stop_cb, **kw)
+    except _Stop:
+        pass
+    stopped_seconds = time.perf_counter() - t0
+    require(len(seen) == 2 and seen[-1].state.iters < finals[SEG_STOP_CHUNK].iters,
+            f"the run stopped mid-solve, after the second segment of chunk {SEG_STOP_CHUNK}")
+    restored = checkpoint.restore(path, _zeroed(seen[-1]))
+    resumed, resume_seconds, _ = _timed(lambda: gp.posterior_cg_segmented(
+        kernel, params, x, y, xs, resume=restored, **kw))
+    same = {"iters": [post.iters, resumed.iters],
+            "mean_bitwise_equal": bool(torch.equal(post.mean, resumed.mean)),
+            "var_bitwise_equal": bool(torch.equal(post.var, resumed.var))}
+    emit("segmented_resume", stopped_at={"chunk": SEG_STOP_CHUNK,
+                                         "iters": restored.state.iters},
+         stopped_seconds=stopped_seconds, resume_seconds=resume_seconds, **same)
+    require(post.iters == resumed.iters and same["mean_bitwise_equal"]
+            and same["var_bitwise_equal"], "the resumed run: equal iterations and bits")
+
+    # the same pipeline at n = 4096 against the exact path (phase 5's gate)
+    xp, yp, xsp = x[:N_PARITY], y[:N_PARITY], x[:8] + 0.1
+    dense = gp.posterior(kernel, params, xp, yp, xsp, noise_variance=1e-2)
+    small = gp.posterior_cg_segmented(kernel, params, xp, yp, xsp, noise_variance=1e-2,
+                                      tol=1e-8, segment_iters=SEG_ITERS, test_chunk=8,
+                                      precond_rank=512)
+    mean_err = float(torch.max(torch.abs(small.mean - dense.mean)))
+    var_err = float(torch.max(torch.abs(small.var - dense.var)))
+    emit("segmented_parity", n=N_PARITY, m=8, mean_abs_err=mean_err, var_abs_err=var_err,
+         gate=1e-2)
+    require(mean_err < 1e-2 and var_err < 1e-2, "segmented vs Cholesky parity at n=4096")
+
+
+def phase_segmented_laplace(device, gen: np.random.Generator, tmp: Path) -> None:
+    """``gp.laplace_fit_cg_segmented`` at phase 10's binary inputs, one
+    Newton step a call: it converges through K3; a run stopped after 3
+    steps, its iterate saved and restored, continued by ``resume_f`` to the
+    uninterrupted mode with equal bits and Newton count; its prediction
+    against ``laplace_fit_cg``'s."""
+    x_np, y_np, _, xt_np = _cls_data(gen, N_BIG, M_CLS)
+    x, y, xt = (torch.tensor(a, dtype=torch.float32, device=device) for a in (x_np, y_np, xt_np))
+    params = convert.params_from_numpy({"sigma": 1.0, "lengthscale": 1.0}, device=device,
+                                       dtype=torch.float32)
+    kernel = ops.RBF()
+    kw = dict(precond_rank=BIN_RANK, cg_tol=CLS_CG_TOL, newton_per_call=1)
+    st, seconds, counts = _timed(lambda: gp.laplace_fit_cg_segmented(kernel, params, x, y,
+                                                                     **kw))
+    emit("segmented_laplace", n=N_BIG, d=2, rank=BIN_RANK, cg_tol=CLS_CG_TOL,
+         newton_per_call=1, newton_iters=st.iters, inner_cg_iters=st.inner_iters,
+         converged=st.converged, error_trace=[float(e) for e in st.error_trace[:st.iters]],
+         seconds=seconds, launches=counts)
+    require(st.converged, "the segmented Newton fit converged")
+    require(counts["gram_matvec_sym"] > 0, "the segmented Newton fit launched K3")
+
+    path = str(tmp / "newton")
+
+    def stop_cb(steps, f):
+        if steps == LAPLACE_STOP:
+            checkpoint.save(path, {"steps": steps, "f": f})
+            raise _Stop
+
+    try:
+        gp.laplace_fit_cg_segmented(kernel, params, x, y, checkpoint_cb=stop_cb, **kw)
+    except _Stop:
+        pass
+    saved = checkpoint.restore(path, {"steps": 0, "f": torch.zeros_like(st.f_mode)})
+    resumed, resume_seconds, _ = _timed(lambda: gp.laplace_fit_cg_segmented(
+        kernel, params, x, y, resume_f=saved["f"], **kw))
+    equal = bool(torch.equal(resumed.f_mode, st.f_mode))
+    pred = gp.predict_binary_cg(kernel, params, st, x, xt, cg_tol=CLS_CG_TOL,
+                                test_chunk=BIN_CHUNK)
+    mono = gp.laplace_fit_cg(kernel, params, x, y, cg_tol=CLS_CG_TOL, precond_rank=BIN_RANK)
+    ref = gp.predict_binary_cg(kernel, params, mono, x, xt, cg_tol=CLS_CG_TOL,
+                               test_chunk=BIN_CHUNK)
+    err, agree = _agreement(pred.prob, ref.prob)
+    emit("segmented_laplace_resume", stopped_after=saved["steps"],
+         newton_iters=[st.iters, saved["steps"] + resumed.iters], f_bitwise_equal=equal,
+         resume_seconds=resume_seconds, monolithic_newton_iters=mono.iters,
+         max_abs_prob_err_vs_monolithic=err, label_agreement=agree, gate_prob=GATE_PROB)
+    require(equal and saved["steps"] + resumed.iters == st.iters,
+            "the resumed Newton fit: equal bits and Newton count")
+    require(bool(torch.isfinite(pred.prob).all()) and err <= GATE_PROB,
+            "segmented fit's prediction within 5e-3 of the monolithic fit's")
+
+
+def _co2_k1_timed(wk, wp, xc: torch.Tensor) -> dict:
+    """K1 at the whitened CO2 shape (526^2, d = 1, the interpreter): its
+    launch alone queued behind a device sleep (the card's time), the
+    dispatcher ``kops.gram`` a call (program, coefficients and launch, as
+    the batched LML calls it: paced by the host) and the plain version,
+    CUDA events, with the bound (bytes: the output)."""
+    n = xc.shape[0]
+    launch = _gram_launch(wk, wp, xc, None)
+    plain = lambda: kops.gram_reference(wk, wp, xc)  # noqa: E731
+    row = _in_turns(launch, plain, 50, 20, timer=_queued_ms)
+    err, _ = _gram_err(launch(), plain())
+    instructions = len(kops.gram_program(wk, wp, True)[0])
+    # operations: at least an RBF entry's per instruction, below the bytes
+    return {"n": n, "d": 1, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "dispatcher_ms": _time_ms(lambda: kops.gram(wk, wp, xc), 50),
+            "max_abs_err": err, "instructions": instructions,
+            **_bound(n * n * instructions * _entry_flops(1), 4.0 * n * n)}
+
+
+def phase_co2(device, gen: np.random.Generator, tmp: Path) -> None:
+    """The Mauna Loa CO2 pipeline on the vendored record (526 points): (a)
+    the whitened fp32 20-year band against float64 on the card; (b) the
+    batched whitened LML over 500 candidates in fp32 (one K1 each) and
+    float64; (c) BO with the float64 whitened LML as the objective, four
+    acquisitions x 10 iterations x 500 candidates; (d) the two examples as
+    subprocesses."""
+    x_np, y_np, _ = datasets.mauna_loa()
+    xt_np = datasets.mauna_loa_test_grid(x_np, years=20)
+    kernel = ops.co2_kernel()
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    book = ops.co2_params_from_vector(f64(THETA_BOOK))
+
+    # (a) the band
+    ref = gp.posterior(kernel, book, f64(x_np), f64(y_np), f64(xt_np), noise_variance=CO2_NOISE)
+    w, seconds, counts = _timed(lambda: gp.whitened_posterior(
+        kernel, book, x_np, y_np, xt_np, noise_variance=CO2_NOISE, dtype=torch.float32,
+        device=device))
+    dmean = float(torch.max(torch.abs(w.mean.double() - ref.mean)))
+    dstd = float(torch.max(torch.abs(w.std.double() - ref.std)))
+    wk, wp = gp.whitened.whitened_kernel(kernel, book, w.y_scale, dtype=torch.float32,
+                                         device=device)
+    xc = torch.as_tensor(x_np - w.x_shift, dtype=torch.float32, device=device)
+    emit("co2_band", n=x_np.shape[0], m=xt_np.shape[0], dtype="float32", seconds=seconds,
+         max_abs_mean_err_ppm=dmean, max_abs_std_err_ppm=dstd, jitter=float(w.jitter),
+         lml=w.lml, lml_float64=float(ref.lml), gates={"mean_ppm": 1.0, "std_ppm": 0.1},
+         launches=counts, k1_timed=_co2_k1_timed(wk, wp, xc))
+    require(dmean <= 1.0 and dstd <= 0.1, "whitened fp32 band within 1.0 / 0.1 ppm")
+    require(counts["gram"] >= 2, "the whitened band launched K1 for K and K_s")
+
+    # (b) the batched LML, fp32 prescreen and float64 search surface
+    lo, hi = np.maximum(THETA_BOOK * 0.5, 1e-3), THETA_BOOK * 1.5
+    cands = gen.uniform(lo, hi, size=(CO2_CANDIDATES, THETA_BOOK.size))
+    batch = {dt: gp.make_whitened_lml_fn(kernel, ops.co2_params_from_vector, x_np, y_np,
+                                         noise_variance=CO2_NOISE, dtype=dt, device=device)
+             for dt in (torch.float32, torch.float64)}
+    lml32, s32, c32 = _timed(lambda: batch[torch.float32](cands))
+    lml64, s64, c64 = _timed(lambda: batch[torch.float64](cands))
+    serial = [gp.whitened_lml(kernel, ops.co2_params_from_vector(f64(th)), x_np, y_np,
+                              noise_variance=CO2_NOISE, dtype=torch.float64, device=device)
+              for th in cands[:CO2_SERIAL]]
+    lml_book = float(gp.log_marginal_likelihood(kernel, book, f64(x_np), f64(y_np),
+                                                noise_variance=CO2_NOISE))
+    book_batch = float(batch[torch.float64](THETA_BOOK)[0])
+    serial_err = float(np.max(np.abs(lml64[:CO2_SERIAL] - serial) / np.abs(serial)))
+    best32 = int(np.argmax(lml32))
+    # one chunk of the fp32 batch under the profiler: the card's busy share
+    breakdown = _device_breakdown(lambda: batch[torch.float32](cands[:128]))
+    breakdown["idle_share"] = 1.0 - breakdown["device_ms"] / breakdown["wall_ms"]
+    emit("co2_batch_lml", candidates=CO2_CANDIDATES, fp32_seconds=s32, float64_seconds=s64,
+         fp32_ms_per_candidate=s32 / CO2_CANDIDATES * 1e3,
+         float64_ms_per_candidate=s64 / CO2_CANDIDATES * 1e3,
+         fp32_max_abs_dlml=float(np.max(np.abs(lml32 - lml64))),
+         fp32_median_abs_dlml=float(np.median(np.abs(lml32 - lml64))),
+         fp32_best_float64_rank=int(np.sum(lml64 > lml64[best32])) + 1,
+         best_float64=float(np.max(lml64)), serial_max_rel_err=serial_err,
+         book_abs_err_vs_direct=abs(book_batch - lml_book), lml_book=lml_book,
+         fp32_launches=c32, float64_launches=c64, fp32_chunk_breakdown=breakdown)
+    require(bool(np.isfinite(lml32).all() and np.isfinite(lml64).all()), "finite batched LMLs")
+    require(c32["gram"] == CO2_CANDIDATES, f"exactly {CO2_CANDIDATES} K1 launches in fp32")
+    require(serial_err <= 1e-10, "float64 batch within rtol 1e-10 of the serial LML")
+    require(abs(book_batch - lml_book) <= 1e-8 * abs(lml_book),
+            "float64 batch within 1e-8 of the direct LML")
+
+    # (c) BO on the float64 whitened LML
+    objective = lambda th: float(batch[torch.float64](th)[0])  # noqa: E731
+    rows = {}
+    for acq in ("PI", "EI", "UCB", "TS"):
+        t0 = time.perf_counter()
+        bo = opt.tune_bayesian_opt(objective, initial_points=THETA_BOOK[None, :] + 0.5,
+                                   bounds=(lo, hi), n_iterations=10,
+                                   n_candidates=CO2_CANDIDATES, acquisition=acq, seed=0)
+        rows[acq] = {"best_lml": bo.best_value, "evaluations": len(bo.values),
+                     "stopped_early": bo.stopped_early,
+                     "seconds": time.perf_counter() - t0,
+                     "within_5pct_of_book": bo.best_value > lml_book - 0.05 * abs(lml_book)}
+    emit("co2_bo", lml_book=lml_book, iterations=10, candidates=CO2_CANDIDATES, seed=0,
+         acquisitions=rows)
+    require(rows["PI"]["stopped_early"] and rows["PI"]["evaluations"] == 2
+            and np.isfinite(rows["PI"]["best_lml"]), "PI stopped after its first proposal")
+    for acq in ("EI", "UCB", "TS"):
+        require(rows[acq]["within_5pct_of_book"], f"BO {acq} within 5% of the book LML")
+    require(max(r["best_lml"] for r in rows.values()) > lml_book, "BO beats the book LML")
+
+    # (d) the examples, as a user runs them
+    examples = {}
+    root = Path(__file__).resolve().parent
+    for name, args, event in (("co2", ["--skip-bo"], "book_lml"),
+                              ("tune_hyperparms_regression", [], "gradient_ascent_done")):
+        out = tmp / name
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "examples_torch" / f"{name}.py"),
+                               *args, "--out", str(out)], capture_output=True, text=True,
+                              timeout=600, cwd=root)
+        records = ([r for r in read_jsonl(str(out / "run.jsonl")) if r["event"] == event]
+                   if proc.returncode == 0 else [])
+        examples[name] = {"returncode": proc.returncode, "seconds": time.perf_counter() - t0,
+                          "lml": records[0]["lml"] if records else None,
+                          "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""}
+    emit("co2_examples", examples=examples)
+    for name, row in examples.items():
+        require(row["returncode"] == 0 and row["lml"] is not None
+                and bool(np.isfinite(row["lml"])), f"examples_torch/{name}.py ran")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     phase_device()
     device = torch.device("cuda", 0)
     # each phase's own generator, so that one that draws more leaves the
@@ -1566,10 +1888,15 @@ def main() -> int:
     phase_estimator_numpy(device, gen(12))
     timings["chol_inv_panel"] = phase_kernels_chol(device, gen(13))
     phase_chol_blocked(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_segmented(device, gen(13), Path(tmp))
+        phase_segmented_laplace(device, gen(14), Path(tmp))
+        phase_co2(device, gen(15), Path(tmp))
     phase_train_exact_profile(device, *train_data)
     emit("path_launches", launches=PATH_LAUNCHES)
     for name in timings:
         require(PATH_LAUNCHES[name] > 0, f"{name} launched on the main paths")
+    emit("run", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": PATH_LAUNCHES[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],

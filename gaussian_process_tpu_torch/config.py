@@ -1,9 +1,10 @@
 """Frozen configuration dataclasses.
 
 Plain dataclasses carried over from the JAX package's ``config.py``
-(``SolveConfig``, ``NewtonConfig``, ``GradientAscentConfig``) with the same
-field names and defaults, so a config built for one package means the same
-thing in the other. Only the configs of the ported paths are here.
+(``SolveConfig``, ``NewtonConfig``, ``GradientAscentConfig``, ``BOConfig``)
+with the same field names and defaults, so a config built for one package
+means the same thing in the other. Only the configs of the ported paths are
+here: ``MeshConfig`` waits for the multi-device tier.
 """
 
 from __future__ import annotations
@@ -51,6 +52,24 @@ class GradientAscentConfig:
     optimizer: str = "sgd"  # "sgd" reproduces the reference's ascent; "adam" for production
 
 
+@dataclasses.dataclass(frozen=True)
+class BOConfig:
+    """Bayesian-optimisation hyperparameter search (``opt.bo``).
+
+    [ref: tune_hyperparms_regression.py:349-395 (1-D, n_iterations=3),
+    CO2_example.py:330-379 (11-D, 10 iters x 500 candidates)]
+    """
+
+    n_iterations: int = 3
+    n_candidates: int = 100
+    surrogate_noise: float = 1e-4  # [ref: tune_hyperparms_regression.py:75]
+    acquisition: str = "PI"  # "PI" | "EI" | "UCB" | "TS"
+    ucb_kappa: float = 0.001  # [ref: tune_hyperparms_regression.py:219]
+    pi_early_stop: float = 1e-3  # PI stops when max CDF <= this [ref: :183-188]
+    seed: int = 0
+
+
 DEFAULT_SOLVE = SolveConfig()
 DEFAULT_NEWTON = NewtonConfig()
 DEFAULT_GA = GradientAscentConfig()
+DEFAULT_BO = BOConfig()

@@ -334,6 +334,7 @@ def laplace_fit_cg(
     precond_rank: int = 512,
     use_kernel: Optional[bool] = None,
     f_init: Optional[torch.Tensor] = None,
+    precond_factor: Optional[torch.Tensor] = None,
     compute_lml: bool = False,
     lml_probes: int = 8,
     lml_lanczos_iters: int = 32,
@@ -348,7 +349,10 @@ def laplace_fit_cg(
     ``v + sW K (sW v)``: one kernel sweep. The preconditioner is Woodbury
     over the rank-``precond_rank`` Nyström factor U of K, built once:
     B ~= I + (sW U)(sW U)^T, so only the (r, r) Gram is rebuilt as W
-    changes.
+    changes. ``precond_factor``: a prebuilt U (for example the state's
+    ``U`` of an earlier fit on the same points, as
+    :func:`laplace_fit_cg_segmented` passes), in which case no factor is
+    built.
 
     ``tol`` defaults to 10 sqrt(eps) floored at ``cg_tol``: inexact Newton
     cannot resolve steps below its inner solve's error. ``compute_lml``
@@ -361,8 +365,11 @@ def laplace_fit_cg(
     n = x_train.shape[0]
     Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel,
                                _reg.cg_dot_mode(cg_tol))
-    k_nw, p_nw, _ = _k.split_white(kernel, params)
-    U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
+    if precond_factor is not None:
+        U = precond_factor
+    else:
+        k_nw, p_nw, _ = _k.split_white(kernel, params)
+        U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
     dt = x_train.dtype
     y = _labels(y_train, x_train)
     t = (y + 1.0) / 2.0
@@ -402,6 +409,71 @@ def laplace_fit_cg(
     return BinaryLaplaceCGState(f_mode=f, grad_at_mode=t - pi, sqrt_w=sw, U=U, lml=lml,
                                 iters=iters, inner_iters=inner, converged=err <= tol,
                                 error_trace=trace)
+
+
+@torch.no_grad()
+def laplace_fit_cg_segmented(
+    kernel: _k.Kernel,
+    params: _k.Params,
+    x_train: torch.Tensor,
+    y_train: torch.Tensor,
+    *,
+    tol: Optional[float] = None,
+    max_iters: int = 100,
+    newton_per_call: int = 1,
+    cg_tol: float = 1e-6,
+    cg_max_iters: int = 200,
+    precond_rank: int = 512,
+    use_kernel: Optional[bool] = None,
+    checkpoint_cb=None,
+    resume_f: Optional[torch.Tensor] = None,
+) -> BinaryLaplaceCGState:
+    """Matrix-free Laplace fit as a loop of bounded calls, the
+    classification twin of ``gp.posterior_cg_segmented``.
+
+    Each call of :func:`laplace_fit_cg` runs ``newton_per_call`` Newton
+    steps from the carried iterate (``f_init``; the Newton iterate is the
+    whole state, so a restart loses nothing), on one Nyström factor U built
+    here once (``precond_factor``). ``checkpoint_cb(steps_total, f)``
+    receives the iterate after every call, and ``resume_f`` continues a
+    stopped fit from it. Convergence is the same relative ||f_new - f||
+    criterion, checked between calls; ``tol`` defaults to 10 sqrt(eps) of
+    the inputs' dtype.
+    """
+    x_train = _k._dist._as_2d(x_train)
+    n = x_train.shape[0]
+    if tol is None:
+        tol = _default_tol(x_train.dtype)
+    k_nw, p_nw, _ = _k.split_white(kernel, params)
+    U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
+    f = (torch.zeros(n, dtype=x_train.dtype, device=x_train.device) if resume_f is None
+         else _labels(resume_f, x_train))
+    total = inner_total = 0
+    err = math.inf
+    trace = []
+    state = None
+    while total < max_iters:
+        state = laplace_fit_cg(
+            kernel, params, x_train, y_train,
+            tol=0.0,  # always run the full newton_per_call budget
+            max_iters=newton_per_call, cg_tol=cg_tol, cg_max_iters=cg_max_iters,
+            use_kernel=use_kernel, f_init=f, precond_factor=U,
+        )
+        err = float(_rel_step(state.f_mode, f))
+        total += state.iters
+        inner_total += state.inner_iters
+        trace.append(err)
+        f = state.f_mode
+        if checkpoint_cb is not None:
+            checkpoint_cb(total, f)
+        if err <= tol:
+            break
+    error_trace = torch.full((max_iters,), float("nan"), dtype=f.dtype, device=f.device)
+    error_trace[:len(trace)] = torch.tensor(trace, dtype=f.dtype)
+    return BinaryLaplaceCGState(f_mode=f, grad_at_mode=state.grad_at_mode,
+                                sqrt_w=state.sqrt_w, U=U, lml=state.lml, iters=total,
+                                inner_iters=inner_total, converged=err <= tol,
+                                error_trace=error_trace)
 
 
 @torch.no_grad()

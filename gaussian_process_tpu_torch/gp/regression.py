@@ -359,3 +359,152 @@ def posterior_mean_cg(
         noisy_mv, y_train, tol=tol, max_iters=max_iters, precond_diag=diag
     )
     return cross_mv(state.x), state
+
+
+class SegmentedSnapshot(NamedTuple):
+    """The whole resumable state of a :func:`posterior_cg_segmented` run.
+
+    Emitted through ``snapshot_cb`` after every segment and accepted back
+    through ``resume=``: a fresh process continues the solve where a
+    stopped one left it, mid-chunk with conjugacy kept (``cg_solve``'s
+    ``init_state``), with the finished chunks' results carried along. Every
+    leaf is a tensor or a scalar, so the tuple round-trips through
+    ``utils.checkpoint``. ``n``, ``m`` and ``test_chunk`` record the problem
+    the state belongs to; a resume on another problem raises.
+    """
+
+    chunk: int  # index of the chunk ``state`` belongs to
+    state: _cg.CGState  # mid-solve CG state of that chunk
+    alpha: Optional[torch.Tensor]  # (n,) weights, once chunk 0 finished
+    means: tuple  # finished chunks' posterior-mean blocks
+    variances: tuple  # finished chunks' variance blocks
+    total_iters: int  # CG iterations spent in finished chunks
+    worst_res: float  # worst final residual across finished chunks
+    n: int  # training points
+    m: int  # test points
+    test_chunk: int  # test points per chunk, as passed
+
+
+@torch.no_grad()
+def posterior_cg_segmented(
+    kernel: _k.Kernel,
+    params: _k.Params,
+    x_train: torch.Tensor,
+    y_train: torch.Tensor,
+    x_test: torch.Tensor,
+    *,
+    noise_variance: Optional[float] = None,
+    tol: Optional[float] = None,
+    max_iters: Optional[int] = None,
+    segment_iters: int = 40,
+    test_chunk: int = 8,
+    use_kernel: Optional[bool] = None,
+    precond_rank: Optional[int] = None,
+    checkpoint_cb=None,
+    snapshot_cb=None,
+    resume: Optional[SegmentedSnapshot] = None,
+    cfg: Optional[_config.SolveConfig] = None,
+) -> CGPosterior:
+    """Matrix-free posterior like :func:`posterior_cg`, as a loop of
+    bounded segments: each runs at most ``segment_iters`` CG iterations and
+    returns the full ``CGState``, which the next segment resumes exactly
+    (``cg_solve``'s ``init_state``: conjugacy kept, not an x0 restart).
+
+    ``snapshot_cb`` receives a :class:`SegmentedSnapshot` after every
+    segment (persist it with ``utils.checkpoint``); passing one back as
+    ``resume=`` continues the solve where it stopped, finished chunks not
+    recomputed. A snapshot of another problem (other n, m or
+    ``test_chunk``) raises ``ValueError``. ``checkpoint_cb(chunk_index,
+    CGState)`` is the state-only hook and fires too.
+
+    The matvec is :func:`kernel_operator` under :func:`cg_dot_mode`, and
+    the Nyström preconditioner is built once per call from strided
+    landmarks, so a fresh process rebuilds the same factor. Chunks of
+    ``test_chunk`` test points are solved one after another, alpha riding
+    the first chunk's block as an extra column.
+    """
+    cfg = _solve_cfg(cfg)
+    if noise_variance is None:
+        noise_variance = cfg.noise_variance
+    if tol is None:
+        tol = cfg.cg_tol
+    if max_iters is None:
+        max_iters = cfg.cg_max_iters
+    x_train = _k._dist._as_2d(x_train)
+    x_test = _k._dist._as_2d(x_test)
+    n = x_train.shape[0]
+    m = x_test.shape[0]
+    if resume is not None and (resume.n, resume.m, resume.test_chunk) != (n, m, test_chunk):
+        raise ValueError(
+            f"the snapshot belongs to n={resume.n}, m={resume.m}, "
+            f"test_chunk={resume.test_chunk}; this call has n={n}, m={m}, "
+            f"test_chunk={test_chunk}"
+        )
+
+    k_nw, p_nw, white_var = _k.split_white(kernel, params)
+    shift = noise_variance + (white_var if white_var is not None else 0.0)
+    matvec = kernel_operator(k_nw, p_nw, x_train, use_kernel, cg_dot_mode(tol))
+    noisy_mv = lambda v: matvec(v) + shift * v
+    if precond_rank is None:
+        precond_rank = min(2048, max(512, n // 50))
+    pre = _nys.make_nystrom_preconditioner(
+        k_nw, p_nw, x_train, shift=shift, rank=min(precond_rank, n)
+    )
+
+    chunk = min(test_chunk, m)
+    n_chunks = -(-m // chunk)
+    kss = _k.gram_diag(kernel, params, x_test)  # full kernel: White counts
+    if resume is not None:
+        start_chunk = int(resume.chunk)
+        means, variances = list(resume.means), list(resume.variances)
+        alpha = resume.alpha
+        total_iters = int(resume.total_iters)
+        worst_res = float(resume.worst_res)
+    else:
+        start_chunk, means, variances = 0, [], []
+        total_iters, worst_res, alpha = 0, 0.0, None
+    for c in range(start_chunk, n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        Ks = _kops.gram(k_nw, p_nw, x_train, x_test[sl])  # (n, chunk)
+        rhs = torch.cat([y_train[:, None], Ks], dim=1) if c == 0 else Ks
+        stop = float(tol) * max(float(torch.sqrt(torch.max(torch.sum(rhs * rhs, dim=0)))),
+                                1e-30)
+
+        def segment(state):
+            state = _cg.cg_solve(noisy_mv, rhs, tol=tol, max_iters=max_iters,
+                                 precond_apply=pre.apply, init_state=state,
+                                 max_new_iters=segment_iters)
+            if checkpoint_cb is not None:
+                checkpoint_cb(c, state)
+            if snapshot_cb is not None:
+                snapshot_cb(SegmentedSnapshot(
+                    chunk=c, state=state, alpha=alpha, means=tuple(means),
+                    variances=tuple(variances), total_iters=total_iters,
+                    worst_res=worst_res, n=n, m=m, test_chunk=test_chunk,
+                ))
+            return state
+
+        # the interrupted chunk continues exactly from its CG state
+        state = segment(resume.state if resume is not None and c == start_chunk else None)
+        while float(state.resnorm) > stop and state.iters < max_iters:
+            prev_iters = state.iters
+            state = segment(state)
+            if state.iters == prev_iters:
+                break  # no progress possible (the cap was reached inside)
+        U = state.x
+        if c == 0:
+            # contiguous, as a checkpoint restores it: a strided vector would
+            # take another product order, and a resumed run other bits
+            alpha = U[:, 0].contiguous()
+            U = U[:, 1:]
+        means.append(Ks.T @ alpha)
+        variances.append(kss[sl] - torch.sum(Ks * U, dim=0))
+        total_iters += state.iters
+        worst_res = max(worst_res, float(state.resnorm))
+
+    mean = torch.cat(means)
+    var = torch.clamp(torch.cat(variances), min=0.0)
+    return CGPosterior(
+        mean=mean, var=var, std=torch.sqrt(var), iters=total_iters,
+        resnorm=torch.tensor(worst_res, dtype=x_train.dtype, device=x_train.device),
+    )

@@ -17,6 +17,7 @@ from gaussian_process_tpu_torch import convert as _convert
 from gaussian_process_tpu_torch.gp import classification as _cls
 from gaussian_process_tpu_torch.gp import multiclass as _mc
 from gaussian_process_tpu_torch.gp import regression as _reg
+from gaussian_process_tpu_torch.gp import whitened as _wh
 from gaussian_process_tpu_torch.ops import kernels as _k
 from gaussian_process_tpu_torch.opt import gradient as _grad
 
@@ -150,6 +151,25 @@ class GPRegressor:
             self._to_device(x_test),
             noise_variance=self.noise_variance,
             dist_method=self.dist_method,
+        )
+
+    def posterior_whitened(self, x_test, *, dtype: torch.dtype = torch.float32
+                           ) -> _wh.WhitenedPosterior:
+        """The whitened posterior (``gp.whitened_posterior``) on the
+        estimator's device: inputs centred and targets standardised by an
+        exact reparameterisation, the fp32 path for ill-conditioned data
+        such as year-valued CO2 inputs with book-scale amplitudes.
+        Stationary kernels only."""
+        self._check_fitted()
+        return _wh.whitened_posterior(
+            self.kernel,
+            self.params,
+            self.x_train,
+            self.y_train,
+            x_test,
+            noise_variance=self.noise_variance,
+            dtype=dtype,
+            device=self.device,
         )
 
     def posterior_cg(self, x_test, **kwargs) -> _reg.CGPosterior:

@@ -17,6 +17,7 @@ from gaussian_process_tpu_torch.ops.kernels import (
     gram_diag,
     co2_kernel,
     co2_params_from_vector,
+    co2_vector_from_params,
 )
 from gaussian_process_tpu_torch.ops import cuda  # noqa: F401
 
@@ -37,4 +38,5 @@ __all__ = [
     "gram_diag",
     "co2_kernel",
     "co2_params_from_vector",
+    "co2_vector_from_params",
 ]

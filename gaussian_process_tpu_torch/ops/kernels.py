@@ -324,9 +324,12 @@ def gram_diag(kernel: Kernel, params: Params, x: torch.Tensor) -> torch.Tensor:
     return kernel._eval_diag(params, x)
 
 
-def co2_kernel() -> Sum:
+def co2_kernel(*, noise_delta_everywhere: bool = False) -> Sum:
     """The Mauna Loa composite kernel of GPML sec. 5.4.3:
-    RBF + DecayedPeriodic + RQ + RBF + White (11 hyperparameters)."""
+    RBF + DecayedPeriodic + RQ + RBF + White (11 hyperparameters).
+    ``noise_delta_everywhere`` is accepted and ignored, as the JAX
+    package's function does."""
+    del noise_delta_everywhere
     return Sum(
         children=(RBF(), DecayedPeriodic(), RationalQuadratic(), RBF(), White())
     )
@@ -348,6 +351,17 @@ def co2_params_from_vector(theta) -> Params:
         {"sigma": theta[8], "lengthscale": theta[9]},
         {"amplitude": theta[10]},
     )
+
+
+def co2_vector_from_params(params: Params) -> torch.Tensor:
+    """Inverse of :func:`co2_params_from_vector`."""
+    return torch.stack([
+        params[0]["sigma"], params[0]["lengthscale"],
+        params[1]["amplitude"], params[1]["decay"], params[1]["smoothness"],
+        params[2]["amplitude"], params[2]["lengthscale"], params[2]["alpha"],
+        params[3]["sigma"], params[3]["lengthscale"],
+        params[4]["amplitude"],
+    ])
 
 
 def is_stationary(kernel: Kernel) -> bool:

@@ -1,4 +1,5 @@
-"""Hyperparameter optimisation: LML gradient ascent, exact and matrix-free."""
+"""Hyperparameter optimisation: LML gradient ascent, exact and matrix-free,
+and Bayesian optimisation."""
 
 from gaussian_process_tpu_torch.opt.gradient import (
     GradientResult,
@@ -14,6 +15,15 @@ from gaussian_process_tpu_torch.opt.large_scale import (
     slq_logdet_matvec,
     tune_large_scale,
 )
+from gaussian_process_tpu_torch.opt.bo import (
+    BOResult,
+    acquisition_ei,
+    acquisition_pi,
+    acquisition_ts,
+    acquisition_ucb,
+    dedup_candidates,
+    tune_bayesian_opt,
+)
 
 __all__ = [
     "GradientResult",
@@ -26,4 +36,11 @@ __all__ = [
     "slq_logdet",
     "slq_logdet_matvec",
     "lml_estimate",
+    "BOResult",
+    "tune_bayesian_opt",
+    "dedup_candidates",
+    "acquisition_pi",
+    "acquisition_ei",
+    "acquisition_ucb",
+    "acquisition_ts",
 ]
