@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GP regression serving and training paths, its
-Laplace classification paths, its blocked Cholesky, its segmented solvers
-and its CO2 pipeline once on one NVIDIA GPU.
+Laplace classification paths, its blocked Cholesky, its segmented solvers,
+its CO2 pipeline and its data-parallel tier (at one rank) once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -126,7 +127,24 @@ one JSON line:
     candidate, so its best is one uniform draw); (d)
     ``examples_torch/co2.py --skip-bo`` and
     ``examples_torch/tune_hyperparms_regression.py`` as subprocesses, each
-    exiting 0 with a finite LML in its ``run.jsonl``.
+    exiting 0 with a finite LML in its ``run.jsonl``;
+16. distributed: the data-parallel tier (``parallel``) at one rank, a
+    one-rank NCCL group on an in-process store that the phase destroys:
+    (a) ``make_posterior_cg`` (Nyström rank 2048, tol 1e-3) on phase 5's
+    problem at m = 64, converged, within 1e-2 of ``gp.posterior_cg`` in
+    mean and variance, with K2 (every ring step) and K1 launched and K3
+    not; (b) ``distributed_posterior_cg_segmented`` on it, 6 iterations a
+    segment, each rank's state saved by ``utils.checkpoint`` after segments
+    1 and 2 and resumed from each with equal iterations and bits, and the
+    jacobi segments at n = 4096 equal to the monolithic jacobi solve; (c)
+    ``make_distributed_posterior`` at n = 8192, m = 2048 in fp32 against
+    float64 on the card under phase 4's gates, K1 launched; (d)
+    ``make_distributed_train_step``, 5 steps at n = 8192, one candidate:
+    the fp32 LML trajectory within rel 3e-4 of float64's, one K5 backward a
+    step; (e) ``examples_torch/gp_regression.py``,
+    ``gp_binary_classification.py``, ``gp_multi_classification.py`` and
+    ``distributed_regression.py --restarts 4`` as subprocesses at their
+    defaults, each exiting 0 with its record.
 
 Then a line ``{"kernels": [...]}``: per kernel its source, the TPU kernel it
 replaces, its launches on the main paths, its error against its plain
@@ -137,7 +155,7 @@ where one PyTorch call computes the same function, that call's time.
 Last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; so does a machine without CUDA. Each phase draws its inputs from
 its own generator, ``np.random.default_rng([0, k])`` with k fixed for the
-phase (phases 13-15 take k = 13, 14, 15), so a phase that draws more
+phase (phases 13-16 take k = 13, 14, 15, 16), so a phase that draws more
 leaves the others' inputs as they were.
 """
 
@@ -250,6 +268,11 @@ LAPLACE_STOP = 3
 # batch and a BO iteration, and the candidates held against the serial LML
 THETA_BOOK = np.array(BOOK, dtype=np.float64)
 CO2_NOISE, CO2_CANDIDATES, CO2_SERIAL = 5e-4, 500, 8
+# the distributed phase: phase 5's problem at m = 64 (r = 65), segments of
+# 6 iterations resumed from the checkpoints of segments 1 and 2, and 5
+# training steps at n = 8192
+DIST_M, DIST_TOL, DIST_RANK, DIST_SEG_ITERS, DIST_RESUME_FROM = 64, 1e-3, 2048, 6, (1, 2)
+DIST_TRAIN_STEPS = 5
 # the H100 SXM's published peaks: fp32 outside the tensor cores, dense TF32
 # on them, and HBM
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
@@ -1868,6 +1891,192 @@ def phase_co2(device, gen: np.random.Generator, tmp: Path) -> None:
                 and bool(np.isfinite(row["lml"])), f"examples_torch/{name}.py ran")
 
 
+def _quiet_timed(fn):
+    """``fn()`` and its wall seconds, its launches left out of the paths'
+    counts (a comparison run)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_distributed(device, gen: np.random.Generator, tmp: Path) -> None:
+    """The data-parallel regression tier (``parallel``) at one rank: a
+    one-rank NCCL group on an in-process store, destroyed at the end. (a)
+    ``make_posterior_cg`` on phase 5's problem at m = 64 (r = 65: every
+    ring step is K2, K1 builds K_s, K3 never runs) against
+    ``gp.posterior_cg``; (b) ``distributed_posterior_cg_segmented`` on it,
+    6 iterations a segment, resumed from the checkpoints of segments 1 and
+    2, and its jacobi variant at n = 4096 against the monolithic solve;
+    (c) ``make_distributed_posterior`` at n = 8192, m = 2048 in fp32
+    against float64 under phase 4's gates, with K1; (d)
+    ``make_distributed_train_step``, 5 steps at n = 8192, fp32 against
+    float64, one K5 backward a step; (e) the four new examples as
+    subprocesses, ``distributed_regression`` with 4 restarts."""
+    import torch.distributed as dist
+
+    from gaussian_process_tpu_torch import parallel
+
+    require(not dist.is_initialized(), "no process group before the distributed phase")
+    mesh = parallel.make_mesh(device=device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    require(dist.get_backend() == backend and dist.get_world_size() == 1,
+            f"a one-rank {backend} group")
+    kernel = ops.RBF()
+    try:
+        # (a) the matrix-free posterior
+        x, y, params = _cg_problem(device, gen, N_BIG)
+        xs = x[:DIST_M] + 0.1
+        kw = dict(noise_variance=1e-2, tol=DIST_TOL, max_iters=120)
+        solver = parallel.make_posterior_cg(kernel, mesh=mesh, preconditioner="nystrom",
+                                            precond_rank=DIST_RANK, **kw)
+        (mean, var, _, iters, res), seconds, counts = _timed(
+            lambda: solver(params, x, y, xs))
+        single, single_seconds = _quiet_timed(lambda: gp.posterior_cg(
+            kernel, params, x, y, xs, preconditioner="nystrom", precond_rank=DIST_RANK, **kw))
+        rhs = torch.cat([y[:, None], ops.gram(kernel, params, x, xs)], dim=1).double()
+        stop = DIST_TOL * float(torch.sqrt(torch.max(torch.sum(rhs * rhs, dim=0))))
+        dmean = float(torch.max(torch.abs(mean - single.mean)))
+        dvar = float(torch.max(torch.abs(var - single.var)))
+        emit("distributed_cg", n=N_BIG, m=DIST_M, d=D, rank=DIST_RANK, tol=DIST_TOL, ranks=1,
+             iters=iters, iters_posterior_cg=single.iters, resnorm=float(res), stop=stop,
+             seconds=seconds, seconds_posterior_cg=single_seconds, max_abs_dmean=dmean,
+             max_abs_dvar=dvar, gate=1e-2, launches=counts)
+        require(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+                "finite distributed CG outputs")
+        require(float(res) <= stop, "the distributed CG converged")
+        require(dmean <= 1e-2 and dvar <= 1e-2, "distributed CG within 1e-2 of posterior_cg")
+        require(counts["gram_matvec_full"] > 0 and counts["gram"] > 0
+                and counts["gram_matvec_sym"] == 0,
+                "the ring launched K2 and K1, and K3 not at all")
+
+        # (b) segmented, checkpointed, resumed
+        seg_kw = dict(mesh=mesh, preconditioner="nystrom", precond_rank=DIST_RANK,
+                      segment_iters=DIST_SEG_ITERS, **kw)
+        states = {}
+
+        def save(i, state):
+            states[i] = state.iters
+            if i in DIST_RESUME_FROM:
+                checkpoint.save(str(tmp / f"dist_seg{i}"), state, per_host=True)
+
+        seg, seg_seconds, seg_counts = _timed(lambda: parallel.distributed_posterior_cg_segmented(
+            kernel, params, x, y, xs, checkpoint_cb=save, **seg_kw))
+        resumes = {}
+        for i in DIST_RESUME_FROM:
+            require(i in states, f"the segmented run reached segment {i}")
+            restored = checkpoint.restore(str(tmp / f"dist_seg{i}"), _zeroed(seg[5]))
+            out, rs_seconds = _quiet_timed(lambda: parallel.distributed_posterior_cg_segmented(
+                kernel, params, x, y, xs, resume_state=restored, **seg_kw))
+            resumes[i] = {"from_iters": restored.iters, "iters": out[3], "seconds": rs_seconds,
+                          "mean_bitwise_equal": bool(torch.equal(out[0], seg[0])),
+                          "var_bitwise_equal": bool(torch.equal(out[1], seg[1]))}
+        jac_kw = dict(noise_variance=1e-2, tol=DIST_TOL, max_iters=1000,
+                      preconditioner="jacobi")
+        xj, yj, xsj = x[:N_PARITY], y[:N_PARITY], x[:8] + 0.1
+        (jm, jv, _, jit, _), _ = _quiet_timed(lambda: parallel.distributed_posterior_cg(
+            kernel, params, xj, yj, xsj, mesh=mesh, **jac_kw))
+        jseg, _ = _quiet_timed(lambda: parallel.distributed_posterior_cg_segmented(
+            kernel, params, xj, yj, xsj, mesh=mesh, segment_iters=DIST_SEG_ITERS, **jac_kw))
+        jacobi = {"n": N_PARITY, "iters": [jit, jseg[3]],
+                  "mean_bitwise_equal": bool(torch.equal(jm, jseg[0])),
+                  "var_bitwise_equal": bool(torch.equal(jv, jseg[1]))}
+        emit("distributed_segmented", segment_iters=DIST_SEG_ITERS, iters=seg[3],
+             segments=states, seconds=seg_seconds, max_abs_dmean_vs_monolithic=float(
+                 torch.max(torch.abs(seg[0] - mean))), resumes=resumes, jacobi=jacobi,
+             launches=seg_counts)
+        for i, row in resumes.items():
+            require(row["iters"] == seg[3] and row["mean_bitwise_equal"]
+                    and row["var_bitwise_equal"],
+                    f"the resume from segment {i}: equal iterations and bits")
+        require(jacobi["iters"][0] == jacobi["iters"][1] and jacobi["mean_bitwise_equal"]
+                and jacobi["var_bitwise_equal"], "jacobi segments equal the monolithic solve")
+
+        # (c) the exact posterior, fp32 against float64 on the card
+        n, m = N_EXACT, M_EXACT
+        xe = gen.uniform(-5.0, 5.0, (n, D))
+        ye = np.sin(0.9 * xe.sum(axis=1)) + 0.02 * gen.standard_normal(n)
+        xse = gen.uniform(-5.0, 5.0, (m, D))
+        on = lambda a, dt: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+        p32 = convert.params_from_numpy(kernel.init_params(), device=device,
+                                        dtype=torch.float32)
+        exact = parallel.make_distributed_posterior(kernel, mesh=mesh, noise_variance=5e-4)
+        _quiet_timed(lambda: exact(p32, on(xe, torch.float32), on(ye, torch.float32),
+                                   on(xse, torch.float32)))  # warm-up
+        (em, ev, el, _), e_seconds, e_counts = _timed(lambda: exact(
+            p32, on(xe, torch.float32), on(ye, torch.float32), on(xse, torch.float32)))
+        (rm, rv, rl, _), r_seconds = _quiet_timed(lambda: exact(
+            convert.params_from_numpy(kernel.init_params(), device=device, dtype=torch.float64),
+            on(xe, torch.float64), on(ye, torch.float64), on(xse, torch.float64)))
+        rel_mean, rel_var = _rel(em, rm), _rel(ev, rv)
+        rel_lml = abs(float(el) - float(rl)) / abs(float(rl))
+        emit("distributed_exact", n=n, m=m, d=D, dtype="float32", seconds=e_seconds,
+             seconds_float64=r_seconds, rel_mean=rel_mean, rel_lml=rel_lml, rel_var=rel_var,
+             gates={"mean": GATE_MEAN, "lml": GATE_LML, "var": GATE_VAR}, launches=e_counts)
+        require(rel_mean <= GATE_MEAN and rel_lml <= GATE_LML and rel_var <= GATE_VAR,
+                "the distributed exact posterior within the parity gates")
+        require(e_counts["gram"] > 0, "the distributed exact posterior launched K1")
+
+        # (d) the training step
+        traces, t_seconds, t_counts = {}, {}, None
+        for dt in (torch.float32, torch.float64):
+            step, init = parallel.make_distributed_train_step(kernel, mesh=mesh)
+            batch0 = convert.params_from_numpy({"sigma": np.ones(1), "lengthscale": np.ones(1)},
+                                               device=device, dtype=dt)
+            state0 = init(batch0)
+            xt_, yt_ = on(xe, dt), on(ye, dt)
+
+            def run():
+                batch, opt_state, lmls = batch0, state0, []
+                for _ in range(DIST_TRAIN_STEPS):
+                    res_ = step(batch, opt_state, xt_, yt_)
+                    batch, opt_state = res_.params, res_.opt_state
+                    lmls.append(float(res_.lml[0]))
+                return lmls
+
+            if dt == torch.float32:
+                traces[dt], t_seconds[dt], t_counts = _timed(run)
+            else:
+                traces[dt], t_seconds[dt] = _quiet_timed(run)
+        rel_traj = max(abs(a - b) / abs(b) for a, b in zip(traces[torch.float32],
+                                                           traces[torch.float64]))
+        emit("distributed_train", n=n, d=D, steps=DIST_TRAIN_STEPS, candidates=1,
+             seconds=t_seconds[torch.float32], seconds_float64=t_seconds[torch.float64],
+             lml=traces[torch.float32], lml_float64=traces[torch.float64],
+             rel_lml_max=rel_traj, gate=GATE_LML, launches=t_counts)
+        require(rel_traj <= GATE_LML, "fp32 training trajectory within rel 3e-4 of float64")
+        require(traces[torch.float32][-1] > traces[torch.float32][0], "the steps raised the LML")
+        require(t_counts["gram_ad_bwd"] == DIST_TRAIN_STEPS,
+                f"one K5 backward a step ({t_counts['gram_ad_bwd']} in {DIST_TRAIN_STEPS})")
+    finally:
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "the group is gone after the distributed phase")
+
+    # (e) the examples, as a user runs them
+    examples = {}
+    root = Path(__file__).resolve().parent
+    for name, args, event in (("gp_regression", [], "regression_done"),
+                              ("gp_binary_classification", [], "classification_done"),
+                              ("gp_multi_classification", [], "multiclass_done"),
+                              ("distributed_regression", ["--restarts", "4"], "restarts_done")):
+        out = tmp / name
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "examples_torch" / f"{name}.py"),
+                               *args, "--out", str(out)], capture_output=True, text=True,
+                              timeout=600, cwd=root)
+        records = ([r for r in read_jsonl(str(out / "run.jsonl")) if r["event"] == event]
+                   if proc.returncode == 0 else [])
+        examples[name] = {"returncode": proc.returncode, "seconds": time.perf_counter() - t0,
+                          "record": records[0] if records else None,
+                          "stdout_tail": proc.stdout[-600:],
+                          "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""}
+    emit("distributed_examples", examples=examples)
+    for name, row in examples.items():
+        require(row["returncode"] == 0 and row["record"] is not None,
+                f"examples_torch/{name}.py ran")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -1892,6 +2101,7 @@ def main() -> int:
         phase_segmented(device, gen(13), Path(tmp))
         phase_segmented_laplace(device, gen(14), Path(tmp))
         phase_co2(device, gen(15), Path(tmp))
+        phase_distributed(device, gen(16), Path(tmp))
     phase_train_exact_profile(device, *train_data)
     emit("path_launches", launches=PATH_LAUNCHES)
     for name in timings:

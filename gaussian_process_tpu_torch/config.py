@@ -1,15 +1,16 @@
 """Frozen configuration dataclasses.
 
 Plain dataclasses carried over from the JAX package's ``config.py``
-(``SolveConfig``, ``NewtonConfig``, ``GradientAscentConfig``, ``BOConfig``)
-with the same field names and defaults, so a config built for one package
-means the same thing in the other. Only the configs of the ported paths are
-here: ``MeshConfig`` waits for the multi-device tier.
+(``SolveConfig``, ``NewtonConfig``, ``GradientAscentConfig``, ``BOConfig``,
+``MeshConfig``) with the same field names and defaults, so a config built
+for one package means the same thing in the other. ``BenchConfig`` waits
+for the port's bench harness.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +70,23 @@ class BOConfig:
     seed: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh layout for the multi-device tier (``parallel``).
+
+    Axes: ``data`` shards kernel-matrix block-rows over ranks; ``restart``
+    shards independent hyperparameter restarts. ``parallel.make_mesh`` reads
+    the sizes; a rank is one process of ``torch.distributed``.
+    """
+
+    data_axis: str = "data"
+    restart_axis: str = "restart"
+    data_axis_size: Optional[int] = None  # None -> all ranks on the data axis
+    restart_axis_size: int = 1
+
+
 DEFAULT_SOLVE = SolveConfig()
 DEFAULT_NEWTON = NewtonConfig()
 DEFAULT_GA = GradientAscentConfig()
 DEFAULT_BO = BOConfig()
+DEFAULT_MESH = MeshConfig()

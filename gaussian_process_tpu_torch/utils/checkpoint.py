@@ -12,9 +12,10 @@ during a save leaves the previous checkpoint whole.
 
 Each process writes its own files: the rank is ``torch.distributed``'s
 where a process group is initialised, else 0, and ranks above 0 add a
-``.rank<r>`` suffix. Sharded leaves, which the JAX package saves shard by
-shard, wait for the port's multi-device tier: every leaf here is saved
-whole.
+``.rank<r>`` suffix. Every leaf is saved whole: a rank of the multi-device
+tier (``parallel``) holds its shard as a tensor of its own and saves it in
+its own file (``per_host=True``), where the JAX package saves a sharded
+array shard by shard.
 """
 
 from __future__ import annotations
