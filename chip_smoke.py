@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GP regression serving and training paths, its
 Laplace classification paths, its blocked Cholesky, its segmented solvers,
-its CO2 pipeline and its data-parallel tier (at one rank) once on one
-NVIDIA GPU.
+its CO2 pipeline, its data-parallel tier and distributed classifiers (at
+one rank) and its multi-host bring-up (one process) once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -144,7 +145,31 @@ one JSON line:
     step; (e) ``examples_torch/gp_regression.py``,
     ``gp_binary_classification.py``, ``gp_multi_classification.py`` and
     ``distributed_regression.py --restarts 4`` as subprocesses at their
-    defaults, each exiting 0 with its record.
+    defaults, each exiting 0 with its record;
+17. distributed_classify: the distributed classifiers at one rank, a
+    one-rank NCCL group that the phase destroys: (a)
+    ``parallel.distributed_fit_predict_binary`` on phase 10's binary
+    problem (n = 102400, rank 512, cg_tol 1e-4, m = 2048, all m columns in
+    one block-CG solve) against ``gp.laplace_fit_cg`` +
+    ``gp.predict_binary_cg`` on the same inputs: converged, max |d prob|
+    <= 5e-3 and labels >= 0.999, K2 (every ring step, the Newton steps'
+    one-column matvecs too) and K1 (the cross-grams) launched and K3 not;
+    K2 as a ring step calls it, at r = 1 and r = 2048, checked against and
+    timed beside its plain version; (b) ``parallel.fit_multiclass_sharded``
+    on phase 9's problem (n = 4096, C = 3) in fp32 against
+    ``gp.fit_multiclass`` in fp32 and in float64 on the card, its
+    ``gp.predict_multiclass`` under phase 9's gates against the float64
+    fit's, K1 launched once;
+18. multihost: ``parallel.multihost`` in one process on NCCL over a TCP
+    store on localhost: the coordinator and the global mesh;
+    ``host_local_to_global`` into ``make_distributed_posterior`` at
+    n = 8192, m = 2048 in fp32 under phase 4's gates against float64, K1
+    launched; ``sync_hosts`` with and without a timeout, ``live_hosts() ==
+    [0]``; a per-rank checkpoint of a card tensor restored with equal bits;
+    ``run_with_redispatch`` around ``make_sharded_lml`` over 8 float64
+    candidates at n = 8192, d = 4, one lost on the first attempt: 2
+    attempts, every value within rel 1e-8 of ``gp.log_marginal_likelihood``
+    on the card; ``shutdown``.
 
 Then a line ``{"kernels": [...]}``: per kernel its source, the TPU kernel it
 replaces, its launches on the main paths, its error against its plain
@@ -155,7 +180,7 @@ where one PyTorch call computes the same function, that call's time.
 Last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; so does a machine without CUDA. Each phase draws its inputs from
 its own generator, ``np.random.default_rng([0, k])`` with k fixed for the
-phase (phases 13-16 take k = 13, 14, 15, 16), so a phase that draws more
+phase (phases 13-18 take k = 13 to 18), so a phase that draws more
 leaves the others' inputs as they were.
 """
 
@@ -273,6 +298,12 @@ CO2_NOISE, CO2_CANDIDATES, CO2_SERIAL = 5e-4, 500, 8
 # training steps at n = 8192
 DIST_M, DIST_TOL, DIST_RANK, DIST_SEG_ITERS, DIST_RESUME_FROM = 64, 1e-3, 2048, 6, (1, 2)
 DIST_TRAIN_STEPS = 5
+# the distributed classifiers (phase 17): K2 as a ring step calls it (x2
+# given) at the Newton steps' width and at the prediction's, all m columns
+# in one block-CG solve; the multi-host phase (18): 8 float64 candidates of
+# the re-dispatched LML, one lost on the first attempt
+RING_K2_R = (1, M_CLS)
+MH_CANDIDATES, MH_LOST = 8, 3
 # the H100 SXM's published peaks: fp32 outside the tensor cores, dense TF32
 # on them, and HBM
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
@@ -2077,6 +2108,209 @@ def phase_distributed(device, gen: np.random.Generator, tmp: Path) -> None:
                 f"examples_torch/{name}.py ran")
 
 
+def _ring_step_k2(kernel, params, x: torch.Tensor, r: int, gen: np.random.Generator) -> dict:
+    """K2 as a ring step calls it, ``x2`` given (here x itself), at r
+    columns: against its plain version (the ``KERNEL_RTOL`` gate), both
+    timed in turns, and its bound."""
+    n, d = x.shape
+    v = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=x.device)
+    run = lambda: kops.gram_matvec(kernel, params, x, x, v)  # noqa: E731
+    plain = lambda: kops.gram_matvec_reference(kernel, params, x, x, v)  # noqa: E731
+    err, scale = _max_err(run(), plain())
+    row = _in_turns(run, plain, *((1, 1) if r > 128 else (5, 2)))
+    row.update(_bound_k2(n, n, d, r), kernel="gram_matvec_full", n=n, d=d, r=r,
+               columns=kops.full_columns(r), max_abs_err=err, max_abs_plain=scale)
+    return row
+
+
+def phase_distributed_classify(device, gen: np.random.Generator) -> None:
+    """The distributed classifiers (``parallel``) at one rank, on a one-rank
+    NCCL group destroyed at the end: (a) ``distributed_fit_predict_binary``
+    at n = 102400 against the single-card matrix-free pair, K2 on every
+    ring step, K1 for the cross-grams, K3 never; K2 at the ring's r = 1
+    and r = 2048 checked and timed; (b) ``fit_multiclass_sharded`` at
+    n = 4096 against ``gp.fit_multiclass`` in fp32 and float64."""
+    import torch.distributed as dist
+
+    from gaussian_process_tpu_torch import parallel
+
+    require(not dist.is_initialized(), "no process group before the classifiers' phase")
+    mesh = parallel.make_mesh(device=device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    require(dist.get_backend() == backend and dist.get_world_size() == 1,
+            f"a one-rank {backend} group")
+    kernel = ops.RBF()
+    x_np, y_np, y3_np, xt_np = _cls_data(gen, N_BIG, M_CLS)
+    x, xt, y = (torch.tensor(a, dtype=torch.float32, device=device) for a in (x_np, xt_np, y_np))
+    params = convert.params_from_numpy({"sigma": 1.0, "lengthscale": 1.0}, device=device,
+                                       dtype=torch.float32)
+    try:
+        # (a) binary, n = 102400: the path, then the single-card pair
+        kw = dict(cg_tol=CLS_CG_TOL, precond_rank=BIN_RANK)
+        out, seconds, counts = _timed(lambda: parallel.distributed_fit_predict_binary(
+            kernel, params, x, y, xt, mesh=mesh, **kw))
+        prob, _, label, _, var, iters, inner, conv = out
+        x_p, y_p, n_true = parallel.mesh.pad_inputs(mesh, "data", x, y)
+        # the fit and the prediction again, each alone and warm
+        fit = parallel.make_distributed_laplace_fit(kernel, mesh=mesh, n_true=n_true, **kw)
+        (_, grad, sw, fit_iters, _, _), fit_seconds = _quiet_timed(lambda: fit(params, x_p, y_p))
+        predict = parallel.make_distributed_laplace_predict(kernel, mesh=mesh, n_true=n_true,
+                                                            **kw)
+        _, predict_seconds = _quiet_timed(lambda: predict(params, x_p, grad, sw, xt))
+        single, single_fit_s = _quiet_timed(lambda: gp.laplace_fit_cg(kernel, params, x, y,
+                                                                      **kw))
+        spred, single_pred_s = _quiet_timed(lambda: gp.predict_binary_cg(
+            kernel, params, single, x, xt, cg_tol=CLS_CG_TOL, test_chunk=BIN_CHUNK))
+        err, agree = _agreement(prob, spred.prob)
+        k2 = [_ring_step_k2(kernel, params, x, r, gen) for r in RING_K2_R]
+        emit("distributed_binary", n=N_BIG, m=M_CLS, d=2, kernel="RBF(1, 1)", rank=BIN_RANK,
+             cg_tol=CLS_CG_TOL, ranks=1, newton_iters=iters, inner_cg_iters=inner,
+             converged=conv, newton_iters_single=single.iters,
+             inner_cg_iters_single=single.inner_iters, seconds=seconds,
+             fit_seconds=fit_seconds, fit_newton_iters=fit_iters, predict_seconds=predict_seconds,
+             seconds_single=single_fit_s + single_pred_s, fit_seconds_single=single_fit_s,
+             predict_seconds_single=single_pred_s, max_abs_prob_err=err,
+             label_agreement=agree, max_abs_dvar=float(torch.max(torch.abs(var - spred.var))),
+             gates={"prob": GATE_PROB, "labels": GATE_LABELS}, launches=counts)
+        emit("distributed_binary_k2", kernel="RBF(sigma=1, lengthscale=1)", rows=k2)
+        require(conv and single.converged, "both binary fits converged")
+        require(prob.shape == (M_CLS,) and bool(torch.isfinite(prob).all()
+                                                 and torch.isfinite(var).all()),
+                "finite distributed probabilities and variances of the expected shape")
+        _gate("distributed binary vs the single-card pair", err, agree)
+        require(counts["gram_matvec_full"] > 0 and counts["gram"] > 0
+                and counts["gram_matvec_sym"] == 0,
+                "the distributed Newton and prediction launched K2 and K1, and K3 not at all")
+
+        # (b) class-sharded multi-class, n = 4096
+        x4, y3 = x[:N_CLS], torch.tensor(y3_np[:N_CLS], device=device)
+        st, mc_seconds, mc_counts = _timed(lambda: parallel.fit_multiclass_sharded(
+            kernel, params, x4, y3, C_CLS, mesh=mesh))
+        ref32, ref32_s = _quiet_timed(lambda: gp.fit_multiclass(kernel, params, x4, y3, C_CLS))
+        p64 = convert.params_from_numpy({"sigma": 1.0, "lengthscale": 1.0}, device=device,
+                                        dtype=torch.float64)
+        ref64, ref64_s = _quiet_timed(lambda: gp.fit_multiclass(kernel, p64, x4.double(), y3,
+                                                                C_CLS))
+        pred = gp.predict_multiclass(kernel, params, st, x4, y3, xt, C_CLS)
+        pred64 = gp.predict_multiclass(kernel, p64, ref64, x4.double(), y3, xt.double(), C_CLS)
+        err, agree = _agreement(pred.prob, pred64.prob)
+        emit("distributed_multiclass", n=N_CLS, m=M_CLS, d=2, classes=C_CLS, ranks=1,
+             newton_iters=st.iters, newton_iters_single=ref32.iters,
+             newton_iters_float64=ref64.iters, converged=st.converged, seconds=mc_seconds,
+             seconds_single=ref32_s, seconds_float64=ref64_s,
+             max_abs_df_vs_single=float(torch.max(torch.abs(st.f_mode - ref32.f_mode))),
+             lml=float(st.lml), lml_single=float(ref32.lml), lml_float64=float(ref64.lml),
+             max_abs_prob_err_vs_float64=err, label_agreement=agree,
+             gates={"prob": GATE_PROB, "labels": GATE_LABELS}, launches=mc_counts)
+        require(st.converged and st.f_mode.shape == (C_CLS, N_CLS)
+                and bool(torch.isfinite(pred.prob).all()),
+                "the class-sharded fit converged, finite probabilities")
+        _gate("class-sharded fp32 vs float64", err, agree)
+        require(mc_counts["gram"] == 1, f"K1 launched once ({mc_counts['gram']})")
+    finally:
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "the group is gone after the classifiers' phase")
+
+
+def phase_multihost(device, gen: np.random.Generator, tmp: Path) -> None:
+    """Multi-host bring-up in one process: ``multihost.initialize`` over a
+    TCP store on localhost (NCCL on the card), the global mesh, rows
+    through ``host_local_to_global`` into the exact distributed posterior,
+    barriers, ``live_hosts``, a per-rank checkpoint, and
+    ``run_with_redispatch`` around the sharded LML; ``shutdown``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gaussian_process_tpu_torch import parallel
+    from gaussian_process_tpu_torch.parallel import multihost
+
+    require(not dist.is_initialized(), "no process group before the multi-host phase")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0,
+                         device=None if device.type == "cuda" else "cpu")
+    kernel = ops.RBF()
+    try:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        require(dist.get_backend() == backend and dist.get_world_size() == 1
+                and multihost.is_coordinator(), f"a one-process {backend} group, coordinator")
+        mesh = multihost.global_mesh(restart=1)
+        require(list(mesh.shape) == [1, 1] and mesh.device_type == device.type,
+                "a 1 x 1 global mesh on the device")
+
+        n, m = N_EXACT, M_EXACT
+        xe = gen.uniform(-5.0, 5.0, (n, D))
+        ye = np.sin(0.9 * xe.sum(axis=1)) + 0.02 * gen.standard_normal(n)
+        xse = gen.uniform(-5.0, 5.0, (m, D))
+        exact = parallel.make_distributed_posterior(kernel, mesh=mesh, noise_variance=5e-4)
+
+        def serve(dt):
+            p = convert.params_from_numpy(kernel.init_params(), device=device, dtype=dt)
+            xg = multihost.host_local_to_global(mesh, torch.tensor(xe, dtype=dt))
+            yg = multihost.host_local_to_global(mesh, torch.tensor(ye, dtype=dt))
+            xs = multihost.replicate_to_global(mesh, torch.tensor(xse, dtype=dt))
+            return exact(p, xg, yg, xs)
+
+        _quiet_timed(lambda: serve(torch.float32))  # warm-up
+        (em, ev, el, alpha), e_seconds, e_counts = _timed(lambda: serve(torch.float32))
+        (rm, rv, rl, _), r_seconds = _quiet_timed(lambda: serve(torch.float64))
+        rel_mean, rel_var = _rel(em, rm), _rel(ev, rv)
+        rel_lml = abs(float(el) - float(rl)) / abs(float(rl))
+        require(rel_mean <= GATE_MEAN and rel_lml <= GATE_LML and rel_var <= GATE_VAR,
+                "the multi-host exact posterior within the parity gates")
+        require(e_counts["gram"] > 0, "the multi-host exact posterior launched K1")
+
+        multihost.sync_hosts("start")
+        multihost.sync_hosts("up", timeout_s=30)
+        live = multihost.live_hosts()
+        require(live == [0], f"live_hosts() == [0] ({live})")
+
+        path = checkpoint.save(str(tmp / "multihost"), {"alpha": alpha, "step": 1}, step=1)
+        back = checkpoint.restore(str(tmp / "multihost"),
+                                  {"alpha": torch.zeros_like(alpha), "step": 0}, step=1)
+        ckpt_equal = bool(torch.equal(back["alpha"], alpha)) and back["step"] == 1
+        require(ckpt_equal and back["alpha"].device == alpha.device,
+                "the per-rank checkpoint restored with equal bits on the device")
+
+        x64 = torch.tensor(xe, dtype=torch.float64, device=device)
+        y64 = torch.tensor(ye, dtype=torch.float64, device=device)
+        cand = {"sigma": np.linspace(0.8, 1.5, MH_CANDIDATES),
+                "lengthscale": np.linspace(0.5, 2.0, MH_CANDIDATES)}
+        lml_fn = parallel.make_sharded_lml(kernel, mesh=mesh)
+
+        def inject(attempt, out):
+            if attempt == 1:
+                out = out.copy()
+                out[MH_LOST] = np.nan
+            return out
+
+        res, rd_seconds, rd_counts = _timed(lambda: parallel.run_with_redispatch(
+            lambda b: lml_fn({k: torch.as_tensor(v) for k, v in b.items()}, x64, y64),
+            cand, inject_failure=inject))
+        want = [float(gp.log_marginal_likelihood(
+            kernel, convert.params_from_numpy({k: v[i] for k, v in cand.items()},
+                                              device=device, dtype=torch.float64), x64, y64))
+                for i in range(MH_CANDIDATES)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res.values, want))
+        emit("multihost", backend=backend, processes=1, mesh=list(mesh.shape), n=n, m=m, d=D,
+             exact={"seconds": e_seconds, "seconds_float64": r_seconds, "rel_mean": rel_mean,
+                    "rel_lml": rel_lml, "rel_var": rel_var, "launches": e_counts},
+             live_hosts=live, checkpoint={"file": Path(path).name, "bitwise_equal": ckpt_equal},
+             redispatch={"candidates": MH_CANDIDATES, "lost_on_attempt_1": MH_LOST,
+                         "attempts": res.attempts, "redispatched": res.redispatched,
+                         "seconds": rd_seconds, "max_rel_err_vs_lml": rel,
+                         "launches": rd_counts},
+             gates={"mean": GATE_MEAN, "lml": GATE_LML, "var": GATE_VAR, "redispatch": 1e-8})
+        require(res.ok.all() and res.attempts == 2 and res.redispatched == 1,
+                "every candidate recovered in 2 attempts, one re-dispatched")
+        require(rel <= 1e-8, f"the re-dispatched LMLs within rel 1e-8 of the direct ({rel:.2e})")
+    finally:
+        multihost.shutdown()
+    require(not dist.is_initialized(), "the group is gone after the multi-host phase")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -2102,6 +2336,8 @@ def main() -> int:
         phase_segmented_laplace(device, gen(14), Path(tmp))
         phase_co2(device, gen(15), Path(tmp))
         phase_distributed(device, gen(16), Path(tmp))
+        phase_distributed_classify(device, gen(17))
+        phase_multihost(device, gen(18), Path(tmp))
     phase_train_exact_profile(device, *train_data)
     emit("path_launches", launches=PATH_LAUNCHES)
     for name in timings:

@@ -1,12 +1,10 @@
 """Multi-device tier on ``torch.distributed`` (torch counterpart of
 ``parallel/``): the process mesh, sharded kernel blocks and the ring
 matvec, distributed CG (ring matvec, sharded Nyström, segmented resume),
-the panel-Cholesky exact posterior, sharded restarts and the distributed
-training step.
-
-The JAX package's distributed classifiers (``classification``,
-``multiclass``), multi-host bring-up (``multihost``) and re-dispatch
-(``recovery``) are not ported yet.
+the panel-Cholesky exact posterior, sharded restarts, the distributed
+training step, the distributed binary Laplace classifier (Newton over the
+ring), the class-sharded multi-class Newton, multi-host bring-up
+(``multihost``) and the re-dispatch of lost candidates (``recovery``).
 """
 
 from gaussian_process_tpu_torch.parallel.mesh import (
@@ -26,6 +24,11 @@ from gaussian_process_tpu_torch.parallel.cg import (
     make_posterior_cg_segments,
     make_posterior_mean_cg,
 )
+from gaussian_process_tpu_torch.parallel.classification import (
+    distributed_fit_predict_binary,
+    make_laplace_fit as make_distributed_laplace_fit,
+    make_laplace_predict as make_distributed_laplace_predict,
+)
 from gaussian_process_tpu_torch.parallel.cholesky import (
     distributed_cholesky,
     distributed_cholesky_solve,
@@ -39,8 +42,14 @@ from gaussian_process_tpu_torch.parallel.restarts import (
     sharded_gradient_restarts,
     sharded_lml,
 )
+from gaussian_process_tpu_torch.parallel.multiclass import (
+    fit_multiclass_sharded,
+    make_sharded_multiclass_fit,
+)
+from gaussian_process_tpu_torch.parallel.recovery import RedispatchResult, run_with_redispatch
 from gaussian_process_tpu_torch.parallel.train import TrainStepResult, make_distributed_train_step
 from gaussian_process_tpu_torch.parallel import comm_model  # noqa: F401
+from gaussian_process_tpu_torch.parallel import multihost
 
 __all__ = [
     "make_mesh",
@@ -57,6 +66,9 @@ __all__ = [
     "make_posterior_cg_segments",
     "distributed_posterior_cg_segmented",
     "ShardedCGState",
+    "make_distributed_laplace_fit",
+    "make_distributed_laplace_predict",
+    "distributed_fit_predict_binary",
     "distributed_cholesky",
     "distributed_cholesky_solve",
     "make_distributed_posterior",
@@ -66,6 +78,11 @@ __all__ = [
     "sharded_gradient_restarts",
     "make_sharded_gradient_restarts",
     "best_restart",
+    "fit_multiclass_sharded",
+    "make_sharded_multiclass_fit",
+    "run_with_redispatch",
+    "RedispatchResult",
+    "multihost",
     "make_distributed_train_step",
     "TrainStepResult",
     "comm_model",

@@ -64,15 +64,13 @@ def _nystrom_factor_local(k_nw, p_nw, x_local, *, grp, g_idx, valid):
     return _chol.tri_solve(L_mm, K_xm.T).T  # (L_mm^{-1} K_mx)^T
 
 
-def _nystrom_local(k_nw, p_nw, x_local, *, grp, shift, g_idx, valid):
-    """The sharded Nyström preconditioner P = U U^T + s I: returns
-    (U_local, chol_G) with G = s I + U^T U reduced over the ranks and
-    factored on every rank alike."""
-    U_local = _nystrom_factor_local(k_nw, p_nw, x_local, grp=grp, g_idx=g_idx, valid=valid)
+def _woodbury_factor(U_local, shift, grp):
+    """chol(G) for the Woodbury solve of U U^T + s I: G = s I + U^T U,
+    reduced over the ranks and factored on every rank alike."""
     r = U_local.shape[1]
     G = _mesh.all_reduce(U_local.T @ U_local, grp)
     G = G + shift * torch.eye(r, dtype=U_local.dtype, device=U_local.device)
-    return U_local, _chol.safe_cholesky(G).factor
+    return _chol.safe_cholesky(G).factor
 
 
 def _nystrom_apply(U_local, chol_G, shift, grp):
@@ -157,11 +155,20 @@ def _matvec(loc: _Local, block, diag_shift):
     return matvec
 
 
-def _nystrom_pre(loc: _Local, k_nw, p_nw, diag_shift, precond_rank, n_true):
-    """(U_local, chol_G) on the landmarks strided over the unpadded rows."""
+def _landmark_factor(loc: _Local, k_nw, p_nw, precond_rank, n_true):
+    """This rank's rows of the Nyström factor U on the landmarks strided
+    over the unpadded rows."""
     n_eff = n_true if n_true is not None else loc.n_pad
-    return _nystrom_local(k_nw, p_nw, loc.x_local, grp=loc.grp, shift=diag_shift,
-                          g_idx=_landmark_global_indices(n_eff, precond_rank), valid=loc.valid)
+    return _nystrom_factor_local(k_nw, p_nw, loc.x_local, grp=loc.grp,
+                                 g_idx=_landmark_global_indices(n_eff, precond_rank),
+                                 valid=loc.valid)
+
+
+def _nystrom_pre(loc: _Local, k_nw, p_nw, diag_shift, precond_rank, n_true):
+    """The sharded Nyström preconditioner P = U U^T + s I: (U_local,
+    chol_G)."""
+    U_local = _landmark_factor(loc, k_nw, p_nw, precond_rank, n_true)
+    return U_local, _woodbury_factor(U_local, diag_shift, loc.grp)
 
 
 def _precond_kwargs(loc: _Local, k_nw, p_nw, diag_shift, preconditioner, precond_rank, n_true):

@@ -180,11 +180,11 @@ def gather_rows(mesh: DeviceMesh, t: torch.Tensor, axis: str = "data") -> torch.
     return all_gather_rows(t, mesh.get_group(axis))
 
 
-def all_reduce(t: torch.Tensor, grp) -> torch.Tensor:
-    """Sum over the ranks of ``grp`` (``lax.psum``). Returns the sum: ``t``
-    itself, reduced in place, where ``t`` is contiguous, else a contiguous
-    copy (the collectives read raw storage, and a LAPACK result is laid out
-    by columns)."""
+def all_reduce(t: torch.Tensor, grp, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or ``op``) over the ranks of ``grp`` (``lax.psum``, ``pmax``).
+    Returns the result: ``t`` itself, reduced in place, where ``t`` is
+    contiguous, else a contiguous copy (the collectives read raw storage,
+    and a LAPACK result is laid out by columns)."""
     t = t.contiguous()
-    dist.all_reduce(t, group=grp)
+    dist.all_reduce(t, op=op, group=grp)
     return t

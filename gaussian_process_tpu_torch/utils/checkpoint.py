@@ -15,7 +15,9 @@ where a process group is initialised, else 0, and ranks above 0 add a
 ``.rank<r>`` suffix. Every leaf is saved whole: a rank of the multi-device
 tier (``parallel``) holds its shard as a tensor of its own and saves it in
 its own file (``per_host=True``), where the JAX package saves a sharded
-array shard by shard.
+array shard by shard. Such a JAX leaf restores here densely where this
+rank's file covers the whole array, and raises otherwise, as a JAX restore
+without the original sharding does.
 """
 
 from __future__ import annotations
@@ -156,16 +158,32 @@ def restore(path: str, like: Any, *, step: Optional[int] = None) -> Any:
             f"checkpoint has {manifest['num_leaves']} leaves, "
             f"'like' tree has {len(like_leaves)}"
         )
-    for entry in manifest["leaves"]:
-        if entry.get("sharded"):
-            raise ValueError(
-                f"leaf {entry['index']} was saved shard by shard, which this package "
-                "cannot restore yet"
-            )
     with np.load(os.path.join(final, "arrays.npz")) as data:
-        leaves = [_like_leaf(data[f"leaf_{i}"], like_leaf)
-                  for i, like_leaf in enumerate(like_leaves)]
+        leaves = [_like_leaf(_assembled(i, entry, data) if entry.get("sharded")
+                             else data[f"leaf_{i}"], like_leaf)
+                  for i, (entry, like_leaf) in enumerate(zip(manifest["leaves"], like_leaves))]
     return _unflatten(like, iter(leaves))
+
+
+def _assembled(i: int, entry: dict, data) -> np.ndarray:
+    """A leaf that the JAX package saved shard by shard (``shard_keys`` such
+    as ``0:4,0:8``, the global slice of each ``leaf_<i>_shard_<j>``),
+    assembled densely; ``ValueError`` where this rank's file does not cover
+    the whole array."""
+    shape = tuple(entry["shape"])
+    out = np.zeros(shape, dtype=entry["dtype"])
+    covered = np.zeros(shape, dtype=bool)
+    for j, key in enumerate(entry["shard_keys"]):
+        slices = tuple(slice(int(a), int(b)) for a, b in (part.split(":")
+                                                          for part in key.split(",")))
+        out[slices] = data[f"leaf_{i}_shard_{j}"]
+        covered[slices] = True
+    if not covered.all():
+        raise ValueError(
+            f"leaf {i}: this rank's checkpoint holds only part of the sharded array; "
+            "the other parts are in other ranks' files"
+        )
+    return out
 
 
 def latest_step(path: str) -> Optional[int]:

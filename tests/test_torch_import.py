@@ -10,7 +10,9 @@ import sys
 PORT = pathlib.Path(__file__).resolve().parents[1] / "gaussian_process_tpu_torch"
 EXAMPLES = PORT.parent / "examples_torch"
 NEW_MODULES = ("gp.whitened", "opt.bo", "utils.checkpoint", "utils.datasets",
-               "utils.logging", "utils.plotting", "utils.profiling")
+               "utils.logging", "utils.plotting", "utils.profiling",
+               "parallel.classification", "parallel.multiclass", "parallel.multihost",
+               "parallel.recovery")
 
 
 def test_port_import_loads_no_jax():
@@ -51,7 +53,9 @@ def test_port_sources_name_no_jax():
     offenders = [
         f"{path.relative_to(PORT.parent)}:{i}"
         for path in sorted([*PORT.rglob("*.py"), *EXAMPLES.glob("*.py"),
-                            PORT.parent / "chip_smoke.py"])
+                            PORT.parent / "chip_smoke.py",
+                            # the rank and process helpers of the port's tests
+                            *(PORT.parent / "tests").glob("torch_*.py")])
         for i, line in enumerate(path.read_text().splitlines(), 1)
         if pattern.match(line)
     ]

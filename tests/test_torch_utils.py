@@ -162,6 +162,43 @@ def test_checkpoint_written_by_the_port_restores_in_jax(tmp_path):
     assert int(got.total_iters) == snap.total_iters and int(got.n) == 40
 
 
+def test_checkpoint_saved_shard_by_shard_by_jax_restores_in_both(tmp_path, monkeypatch):
+    """A leaf that the JAX package saved shard by shard (its layout for an
+    array no single process can address whole; forced here on a one-process
+    mesh of 4 CPU devices): both packages assemble it densely where this
+    rank's file covers it, and both refuse a file that holds only part."""
+    import json
+
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    arr = np.arange(32.0).reshape(8, 4)
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("a", "b"))
+    tree = {"K": jax.device_put(jnp.asarray(arr), NamedSharding(mesh, P("a", "b"))),
+            "step": np.asarray(3)}
+    monkeypatch.setattr(jcheckpoint, "_is_global_sharded",
+                        lambda leaf: isinstance(leaf, jax.Array) and leaf.ndim == 2)
+    path = jcheckpoint.save(str(tmp_path / "sharded"), tree)
+    manifest_path = os.path.join(path, "manifest.json")
+    with open(manifest_path) as fh:
+        manifest = json.load(fh)
+    assert manifest["leaves"][0]["shard_keys"] == ["0:4,0:2", "0:4,2:4", "4:8,0:2", "4:8,2:4"]
+
+    want = jcheckpoint.restore(path, {"K": np.zeros((8, 4)), "step": np.asarray(0)})
+    got = checkpoint.restore(path, {"K": torch.zeros(8, 4, dtype=torch.float64), "step": 0})
+    np.testing.assert_array_equal(want["K"], arr)
+    assert torch.equal(got["K"], torch.from_numpy(arr)) and got["step"] == 3
+
+    manifest["leaves"][0]["shard_keys"] = manifest["leaves"][0]["shard_keys"][:3]
+    with open(manifest_path, "w") as fh:
+        json.dump(manifest, fh)
+    for restore, like in ((jcheckpoint.restore, {"K": np.zeros((8, 4)), "step": np.asarray(0)}),
+                          (checkpoint.restore, {"K": torch.zeros(8, 4), "step": 0})):
+        with pytest.raises(ValueError, match="leaf 0: this rank's checkpoint holds only part "
+                                             "of the sharded array"):
+            restore(path, like)
+
+
 def test_dataset_cache(tmp_path):
     path = str(tmp_path / "cache.npz")
     assert checkpoint.load_dataset_cache(path) is None

@@ -53,6 +53,25 @@ def ill_conditioned(n, d, seed):
     return x, y, rng.uniform(-5, 5, (8, d))
 
 
+def binary_problem(n, m, seed):
+    """The JAX suite's distributed Laplace problem: x in [-3, 3]^2, labels
+    sign(sin(x0 + x1) + 0.3 noise), m test points."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-3, 3, (n, 2))
+    y = np.where(np.sin(x.sum(axis=1)) + 0.3 * rng.standard_normal(n) > 0, 1.0, -1.0)
+    return x, y, rng.uniform(-3, 3, (m, 2))
+
+
+def blobs(n, num_classes, seed, d=2):
+    """The JAX suite's multi-class blobs: n // C points round each of C
+    centres in [-4, 4]^d, labelled by centre."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-4, 4, size=(num_classes, d))
+    x = np.concatenate([centers[c] + 0.5 * rng.standard_normal((n // num_classes, d))
+                        for c in range(num_classes)])
+    return x, np.repeat(np.arange(num_classes), n // num_classes)
+
+
 def spd(n, seed):
     rng = np.random.default_rng(seed)
     a = rng.standard_normal((n, n))
@@ -348,6 +367,56 @@ def train(world, n, d, seed, steps, restart, lengthscales, kernel, lr):
     return {"lml": np.stack(lmls), "params": params, "local_optimisers": len(opt_state)}
 
 
+@case
+def binary(world, n, m, seed, kernel, precond_rank, cg_tol):
+    from gaussian_process_tpu_torch import parallel
+
+    x, y, xt = binary_problem(n, m, seed)
+    k, p = _kernel(kernel)
+    mesh = _mesh()
+    kw = dict(mesh=mesh, precond_rank=precond_rank, cg_tol=cg_tol)
+    prob, pavg, label, mean, var, iters, inner, conv = parallel.distributed_fit_predict_binary(
+        k, p, _t(x), _t(y), _t(xt), **kw)
+    x_p, _ = parallel.pad_to_multiple(_t(x), world)
+    y_p, _ = parallel.pad_to_multiple(_t(y), world)
+    fit = parallel.make_distributed_laplace_fit(
+        k, n_true=None if x_p.shape[0] == n else n, **kw)
+    f, grad, sw, fit_iters, _, _ = fit(p, x_p, y_p)
+    out = {"prob": _np(prob), "pavg": _np(pavg), "label": _np(label), "mean": _np(mean),
+           "var": _np(var), "iters": iters, "inner": inner, "converged": conv,
+           "fit_iters": fit_iters, "rows": f.shape[0]}
+    out.update({name: _np(parallel.gather_rows(mesh, t))
+                for name, t in (("f", f), ("grad", grad), ("sqrt_w", sw))})
+    return out
+
+
+@case
+def multiclass(world, num_classes, seed, max_iters):
+    from gaussian_process_tpu_torch import parallel
+
+    x, y = blobs(num_classes * 8, num_classes, seed)
+    k, p = _kernel("rbf")
+    st = parallel.fit_multiclass_sharded(k, p, _t(x), y, num_classes, mesh=_mesh(),
+                                         max_iters=max_iters)
+    return {"f_mode": _np(st.f_mode), "pi": _np(st.pi), "lml": float(st.lml),
+            "iters": st.iters, "converged": st.converged, "trace": _np(st.error_trace)}
+
+
+@case
+def multiclass_accuracy(world, seed, max_iters):
+    """The JAX suite's held-out blobs: 45 points of 3 classes, 30 to fit on
+    the ranks, 15 to classify by the single-card prediction."""
+    from gaussian_process_tpu_torch import gp, parallel
+
+    xa, ya = blobs(45, 3, seed)
+    perm = np.random.default_rng(seed + 1).permutation(len(ya))
+    x, y, xt, yt = xa[perm[:30]], ya[perm[:30]], xa[perm[30:]], ya[perm[30:]]
+    k, p = _kernel("rbf")
+    st = parallel.fit_multiclass_sharded(k, p, _t(x), y, 3, mesh=_mesh(), max_iters=max_iters)
+    pred = gp.predict_multiclass(k, p, st, _t(x), y, _t(xt), 3)
+    return {"accuracy": float(np.mean(_np(pred.label) == yt)), "converged": st.converged}
+
+
 # ---------------------------------------------------------- running the ranks
 
 
@@ -369,6 +438,11 @@ def _rank_main(rank, world, init_file, spec_file, out_dir):
             results.append({"error": traceback.format_exc()})
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
         pickle.dump(results, fh)
+    # drop the meshes' sub-groups before the group goes: a gloo group that
+    # outlives destroy_process_group to the interpreter's exit can abort it
+    # ("terminate called without an active exception", about one start in
+    # 40 here)
+    _MESHES.clear()
     dist.destroy_process_group()
 
 
