@@ -2,8 +2,8 @@
 """Drive the PyTorch port's GP regression serving and training paths, its
 Laplace classification paths, its blocked Cholesky, its segmented solvers,
 its CO2 pipeline, its data-parallel tier and distributed classifiers (at
-one rank) and its multi-host bring-up (one process) once on one NVIDIA
-GPU.
+one rank), its multi-host bring-up (one process) and the audit of the
+tier's collectives once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -169,7 +169,16 @@ one JSON line:
     ``run_with_redispatch`` around ``make_sharded_lml`` over 8 float64
     candidates at n = 8192, d = 4, one lost on the first attempt: 2
     attempts, every value within rel 1e-8 of ``gp.log_marginal_likelihood``
-    on the card; ``shutdown``.
+    on the card; ``shutdown``;
+19. comm_audit: ``parallel.comm_model``'s collective audit at one rank, a
+    one-rank NCCL group that the phase destroys: ``make_posterior_cg`` on
+    phase 16's problem, ``make_distributed_posterior`` at n = 8192,
+    m = 2048 in fp32 and one ``make_distributed_train_step`` step at
+    n = 8192, each run plain and then under ``audit_collectives``: the
+    records by kind, collectives recorded on the card's tensors, no send
+    or receive (one rank posts no ring transfer), both models verified,
+    the training step's reduce-scatter recorded, equal bits with and
+    without the recorder.
 
 Then a line ``{"kernels": [...]}``: per kernel its source, the TPU kernel it
 replaces, its launches on the main paths, its error against its plain
@@ -180,7 +189,7 @@ where one PyTorch call computes the same function, that call's time.
 Last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; so does a machine without CUDA. Each phase draws its inputs from
 its own generator, ``np.random.default_rng([0, k])`` with k fixed for the
-phase (phases 13-18 take k = 13 to 18), so a phase that draws more
+phase (phases 13-19 take k = 13 to 19), so a phase that draws more
 leaves the others' inputs as they were.
 """
 
@@ -2311,6 +2320,130 @@ def phase_multihost(device, gen: np.random.Generator, tmp: Path) -> None:
     require(not dist.is_initialized(), "the group is gone after the multi-host phase")
 
 
+def _audit(fn):
+    """``fn()`` under the collective recorder: its result, the records, the
+    wall seconds and the kernels' launches (a comparison run, left out of
+    the paths' counts)."""
+    from gaussian_process_tpu_torch.parallel import comm_model
+
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, records = comm_model.audit_collectives(fn)
+    torch.cuda.synchronize()
+    return out, records, time.perf_counter() - t0, dict(kops.launch_counts)
+
+
+def _bits_equal(a, b) -> bool:
+    return all(torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v
+               for u, v in zip(a, b))
+
+
+def _by_kind(records) -> dict:
+    kinds = collections.Counter(r["kind"] for r in records)
+    return {"count": dict(kinds), "on_device": dict(collections.Counter(
+        f'{r["kind"]}@{r["device"]}' for r in records)),
+        "out_bytes": sum(r["out_bytes"] for r in records)}
+
+
+def phase_comm_audit(device, gen: np.random.Generator) -> None:
+    """The collective audit (``parallel.comm_model``) at one rank, a
+    one-rank NCCL group that the phase destroys: ``make_posterior_cg`` on
+    phase 16's problem (m = 64, Nyström rank 2048, tol 1e-3),
+    ``make_distributed_posterior`` at n = 8192, m = 2048 in fp32 and one
+    ``make_distributed_train_step`` step at n = 8192, each run plain and
+    then under ``audit_collectives``. Requires collectives recorded on the
+    card's tensors, no send (one rank posts no ring transfer), the
+    posterior and CG models verified, the training step's reduce-scatter
+    recorded, and equal bits with and without the recorder."""
+    import torch.distributed as dist
+
+    from gaussian_process_tpu_torch import parallel
+    from gaussian_process_tpu_torch.parallel import comm_model
+
+    require(not dist.is_initialized(), "no process group before the audit phase")
+    mesh = parallel.make_mesh(device=device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    require(dist.get_backend() == backend and dist.get_world_size() == 1,
+            f"a one-rank {backend} group")
+    kernel = ops.RBF()
+    try:
+        # the first block in a process imports torch's dispatch-mode
+        # machinery: timed apart, so that the runs below time the recorder
+        t0 = time.perf_counter()
+        comm_model.audit_collectives(lambda: torch.ones(1, device=device) + 1)
+        first_use = time.perf_counter() - t0
+        x, y, params = _cg_problem(device, gen, N_BIG)
+        xs = x[:DIST_M] + 0.1
+        solver = parallel.make_posterior_cg(kernel, mesh=mesh, preconditioner="nystrom",
+                                            precond_rank=DIST_RANK, noise_variance=1e-2,
+                                            tol=DIST_TOL, max_iters=120)
+        cg_plain, cg_seconds = _quiet_timed(lambda: solver(params, x, y, xs))
+        cg_out, cg_recs, cg_audit_seconds, cg_counts = _audit(lambda: solver(params, x, y, xs))
+        iters = cg_out[3]
+        cg_rep = comm_model.verify_cg_iteration_model(cg_recs, 1, N_BIG, D, r=DIST_M + 1,
+                                                      iters=iters)
+
+        n, m = N_EXACT, M_EXACT
+        on = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+        xe = on(gen.uniform(-5.0, 5.0, (n, D)))
+        ye = torch.sin(0.9 * xe.sum(dim=1)) + 0.02 * on(gen.standard_normal(n))
+        xse = on(gen.uniform(-5.0, 5.0, (m, D)))
+        p32 = convert.params_from_numpy(kernel.init_params(), device=device,
+                                        dtype=torch.float32)
+        exact = parallel.make_distributed_posterior(kernel, mesh=mesh, noise_variance=5e-4)
+        ex_plain, ex_seconds = _quiet_timed(lambda: exact(p32, xe, ye, xse))
+        ex_out, ex_recs, ex_audit_seconds, ex_counts = _audit(lambda: exact(p32, xe, ye, xse))
+        post_rep = comm_model.verify_posterior_model(ex_recs, 1, n, m, D, dtype=torch.float32)
+
+        def train_step():
+            step, init = parallel.make_distributed_train_step(kernel, mesh=mesh)
+            batch = convert.params_from_numpy({"sigma": np.ones(1), "lengthscale": np.ones(1)},
+                                              device=device, dtype=torch.float32)
+            res = step(batch, init(batch), xe, ye)
+            return [res.lml] + tk.tree_leaves(res.params)
+
+        tr_plain, tr_seconds = _quiet_timed(train_step)
+        tr_out, tr_recs, tr_audit_seconds, tr_counts = _audit(train_step)
+        scatters = [(r["op"], [list(s) for s in r["shapes"]], str(r["dtype"]))
+                    for r in tr_recs if r["kind"] == "reduce-scatter"]
+
+        runs = {
+            "posterior_cg": {"n": N_BIG, "m": DIST_M, "iters": iters, "seconds": cg_seconds,
+                             "seconds_audited": cg_audit_seconds,
+                             "bitwise_equal": _bits_equal(cg_plain, cg_out),
+                             "records": _by_kind(cg_recs), "report": cg_rep,
+                             "launches_audited": cg_counts},
+            "exact": {"n": n, "m": m, "seconds": ex_seconds,
+                      "seconds_audited": ex_audit_seconds,
+                      "bitwise_equal": _bits_equal(ex_plain, ex_out),
+                      "records": _by_kind(ex_recs), "report": post_rep,
+                      "launches_audited": ex_counts},
+            "train_step": {"n": n, "seconds": tr_seconds, "seconds_audited": tr_audit_seconds,
+                           "bitwise_equal": _bits_equal(tr_plain, tr_out),
+                           "records": _by_kind(tr_recs), "reduce_scatters": scatters,
+                           "launches_audited": tr_counts},
+        }
+        emit("comm_audit", backend=backend, ranks=1, recorder_first_use_seconds=first_use,
+             runs=runs)
+        for name, row in runs.items():
+            recs = {"posterior_cg": cg_recs, "exact": ex_recs, "train_step": tr_recs}[name]
+            require(any(r["device"] == device.type for r in recs),
+                    f"{name}: collectives recorded on {device.type} tensors")
+            require(row["records"]["count"].get("collective-permute", 0) == 0
+                    and row["records"]["count"].get("recv", 0) == 0,
+                    f"{name}: no send or receive at one rank")
+            require(row["bitwise_equal"], f"{name}: equal bits with and without the recorder")
+        require(cg_rep["verified"] and post_rep["verified"], "both models verified")
+        require(cg_counts["gram_matvec_full"] > 0 and ex_counts["gram"] > 0,
+                "the kernels ran under the recorder")
+        if backend == "nccl":
+            require(len(scatters) == 1, "the training step's one reduce-scatter recorded")
+    finally:
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "the group is gone after the audit phase")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -2338,6 +2471,7 @@ def main() -> int:
         phase_distributed(device, gen(16), Path(tmp))
         phase_distributed_classify(device, gen(17))
         phase_multihost(device, gen(18), Path(tmp))
+    phase_comm_audit(device, gen(19))
     phase_train_exact_profile(device, *train_data)
     emit("path_launches", launches=PATH_LAUNCHES)
     for name in timings:

@@ -41,7 +41,7 @@ import torch
 
 from gaussian_process_tpu_torch import gp, ops
 from gaussian_process_tpu_torch.opt import tune_bayesian_opt
-from gaussian_process_tpu_torch.utils import datasets, plotting
+from gaussian_process_tpu_torch.utils import datasets, plotting, profiling
 from gaussian_process_tpu_torch.utils.logging import JsonlLogger
 
 # GPML sec. 5.4.3 book hyperparameters [ref: CO2_example.py:324]
@@ -61,6 +61,8 @@ def resolve_device(name: str) -> torch.device:
 
 
 def main(argv=None) -> None:
+    # the CUDA library is built once per hash of its sources and kept here
+    profiling.enable_persistent_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--bo-iters", type=int, default=5)
     ap.add_argument("--candidates", type=int, default=100)

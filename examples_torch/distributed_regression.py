@@ -26,7 +26,7 @@ import torch
 import torch.distributed as dist
 
 from gaussian_process_tpu_torch import convert, ops, parallel
-from gaussian_process_tpu_torch.utils import datasets
+from gaussian_process_tpu_torch.utils import datasets, profiling
 from gaussian_process_tpu_torch.utils.logging import JsonlLogger
 from gaussian_process_tpu_torch.utils.profiling import time_fn
 
@@ -41,6 +41,8 @@ def resolve_device(name: str) -> torch.device:
 
 
 def main(argv=None) -> None:
+    # the CUDA library is built once per hash of its sources and kept here
+    profiling.enable_persistent_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--d", type=int, default=8)

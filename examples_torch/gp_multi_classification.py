@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from gaussian_process_tpu_torch import convert, gp, ops
-from gaussian_process_tpu_torch.utils import datasets, plotting
+from gaussian_process_tpu_torch.utils import datasets, plotting, profiling
 from gaussian_process_tpu_torch.utils.logging import JsonlLogger
 
 
@@ -41,6 +41,8 @@ def resolve_device(name: str) -> torch.device:
 
 
 def main(argv=None) -> None:
+    # the CUDA library is built once per hash of its sources and kept here
+    profiling.enable_persistent_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--centers", type=int, default=3)
     ap.add_argument("--n-samples", type=int, default=100)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from gaussian_process_tpu_torch import convert, gp, ops, opt
-from gaussian_process_tpu_torch.utils import datasets, plotting
+from gaussian_process_tpu_torch.utils import datasets, plotting, profiling
 from gaussian_process_tpu_torch.utils.logging import JsonlLogger
 
 
@@ -39,6 +39,8 @@ def resolve_device(name: str) -> torch.device:
 
 
 def main(argv=None) -> None:
+    # the CUDA library is built once per hash of its sources and kept here
+    profiling.enable_persistent_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-train", type=int, default=3)
     ap.add_argument("--n-test", type=int, default=100)

@@ -3,9 +3,10 @@
 ``nvcc`` compiles ``gaussian_process_tpu_torch/csrc/*.cu`` for ``sm_90a``
 (one process per source, in parallel) and links them into a shared library
 with a plain C interface, under ``gaussian_process_tpu_torch/_build/``
-(listed in ``.gitignore``). The file name carries a hash of the sources,
-the headers and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing here runs at import
+(listed in ``.gitignore``) or where
+``utils.profiling.enable_persistent_compile_cache`` points. The file name
+carries a hash of the sources, the headers and the flags, so an edited
+source is rebuilt and a stale library is never loaded. Nothing here runs at import
 time; :func:`load` is called by the kernel wrappers on their first launch.
 """
 
@@ -23,7 +24,10 @@ from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+DEFAULT_BUILD_DIR = PKG_DIR / "_build"
+# where the library is built and looked for (moved by
+# utils.profiling.enable_persistent_compile_cache)
+BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("chol_panel.cu", "gram.cu", "gram_bwd.cu", "gram_matvec.cu",
            "gram_matvec_full_matern.cu", "gram_matvec_bwd.cu", "gram_matvec_bwd_sym.cu", "gram_matvec_bwd_sym_matern.cu",
            "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")

@@ -16,7 +16,9 @@ place, right-looking, one panel of width m a step:
 Forward and backward block substitution follow the same pattern: a small
 triangular solve on the owning rank and an all-reduce of m rows a step.
 These are the JAX package's collectives one for one, so
-``comm_model.ici_comm_model``'s factor and solve bytes hold for both.
+``comm_model.ici_comm_model``'s factor and solve bytes hold for both, in
+the working dtype below (``comm_model.verify_posterior_model`` checks the
+bytes this module issues).
 
 Precision: fp32 inputs are factored and solved in
 ``linalg.cholesky.solve_dtype`` (float64), as the single-card exact path

@@ -6,10 +6,10 @@ call returns (``Stopwatch``: the tensors passed as ``block``). PyTorch
 returns before the card finishes, so a host clock alone would time the
 enqueue.
 
-The JAX module's ``enable_persistent_compile_cache`` has no counterpart:
-XLA's compile cache has no meaning here. The port's kernels are built once
-per hash of their sources into ``ops/cuda/_build/``
-(``ops.cuda._build``), and nothing else is compiled.
+The port's only compiled code is its CUDA library, built once per hash of
+its sources (``ops.cuda._build``); :func:`enable_persistent_compile_cache`
+says where that library is kept, as the JAX function says where XLA keeps
+its programs.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -24,6 +25,19 @@ import torch
 # Annotates a region in a torch.profiler trace (the JAX module's
 # ``jax.named_scope``).
 named_scope = torch.profiler.record_function
+
+
+def enable_persistent_compile_cache(cache_dir: Optional[str] = None) -> None:
+    """Keep the built CUDA kernel library in ``cache_dir`` (default: the
+    package's ``_build/``, where it is kept anyway). Every example calls
+    this first, as the JAX examples do for XLA's cache: a library built for
+    the same sources and flags is loaded from there and not rebuilt. Takes
+    effect for a build that has not happened yet in this process; a library
+    already loaded stays loaded."""
+    from gaussian_process_tpu_torch.ops.cuda import _build
+
+    _build.BUILD_DIR = (_build.DEFAULT_BUILD_DIR if cache_dir is None
+                        else Path(cache_dir).resolve())
 
 
 def _tensors(x: Any):

@@ -12,7 +12,7 @@ EXAMPLES = PORT.parent / "examples_torch"
 NEW_MODULES = ("gp.whitened", "opt.bo", "utils.checkpoint", "utils.datasets",
                "utils.logging", "utils.plotting", "utils.profiling",
                "parallel.classification", "parallel.multiclass", "parallel.multihost",
-               "parallel.recovery")
+               "parallel.recovery", "parallel.comm_model", "data.make_mauna_loa")
 
 
 def test_port_import_loads_no_jax():

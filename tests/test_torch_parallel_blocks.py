@@ -109,13 +109,15 @@ def test_torch_ring_matvec_mesh_size_invariance(runs):
 @pytest.mark.parametrize("p,n,t,d", [(2, 1024, 16, 4), (8, 1024, 16, 4), (8, 2048, 32, 4),
                                      (4, 102400, 64, 4)])
 def test_torch_comm_model_one_column_equals_jax(p, n, t, d):
-    """At r = 1 the factor and solve bytes equal the JAX model's, and p
-    ring steps of the port's payload are the JAX model's iteration (the
-    JAX ring moves p blocks a matvec, the port's p - 1)."""
+    """At r = 1 the factor and solve move the JAX model's elements, each of
+    8 bytes where the JAX model's are 4 (fp32 inputs factor and solve in
+    float64 in the port), and p ring steps of the port's payload are the
+    JAX model's iteration (the JAX ring moves p blocks a matvec, the
+    port's p - 1)."""
     want = jax_cm.ici_comm_model(p, n, t, d)
     got = torch_cm.ici_comm_model(p, n, t, d, r=1)
-    assert got["chol_bytes_per_device"] == want["chol_bytes_per_device"]
-    assert got["solve_bytes_per_device"] == want["solve_bytes_per_device"]
+    assert got["chol_bytes_per_device"] == 2 * want["chol_bytes_per_device"]
+    assert got["solve_bytes_per_device"] == 2 * want["solve_bytes_per_device"]
     assert p * got["cg_ring_bytes_per_device_per_step"] == want["cg_ring_bytes_per_device_per_iter"]
     assert got["cg_ring_bytes_per_device_per_iter"] == (
         (p - 1) * got["cg_ring_bytes_per_device_per_step"])
@@ -132,11 +134,16 @@ def test_torch_comm_model_counts_the_rhs_width(p, n):
 
 
 def test_torch_comm_model_takes_the_element_size_from_the_dtype():
+    """The ring moves elements of the inputs' dtype; the factor and the
+    solves elements of ``solve_dtype`` (float64 for fp32 and float64
+    inputs, the dtype itself for half precision)."""
+    f16 = torch_cm.ici_comm_model(4, 4096, 16, 4, r=9, dtype=torch.float16)
     f32 = torch_cm.ici_comm_model(4, 4096, 16, 4, r=9, dtype=torch.float32)
     f64 = torch_cm.ici_comm_model(4, 4096, 16, 4, r=9, dtype="float64")
-    for key in ("chol_bytes_per_device", "solve_bytes_per_device",
-                "cg_ring_bytes_per_device_per_step", "cg_ring_bytes_per_device_per_iter"):
-        assert f64[key] == 2 * f32[key]
+    for key in ("cg_ring_bytes_per_device_per_step", "cg_ring_bytes_per_device_per_iter"):
+        assert f64[key] == 2 * f32[key] == 4 * f16[key]
+    for key in ("chol_bytes_per_device", "solve_bytes_per_device"):
+        assert f64[key] == f32[key] == 4 * f16[key]
     assert torch_cm.ici_comm_model(1, 4096, 16, 4)["cg_ring_bytes_per_device_per_iter"] == 0
 
 

@@ -65,6 +65,20 @@ def test_mauna_loa_csv_is_a_byte_equal_copy():
     assert filecmp.cmp(port, ref, shallow=False)
 
 
+def test_mauna_loa_generator_writes_the_vendored_csv(tmp_path):
+    """The port's generator writes the port's CSV byte for byte (and that CSV
+    is the JAX package's, above); it imports neither numpy nor torch."""
+    from gaussian_process_tpu_torch.data import make_mauna_loa
+
+    out = tmp_path / "co2.csv"
+    make_mauna_loa.main(str(out))
+    port = ROOT / "gaussian_process_tpu_torch" / "data" / "mauna_loa_co2.csv"
+    assert out.read_bytes() == port.read_bytes()
+    assert len(make_mauna_loa.rows()) == 526
+    src = (ROOT / "gaussian_process_tpu_torch" / "data" / "make_mauna_loa.py").read_text()
+    assert "numpy" not in src.split('"""')[2] and "torch" not in src.split('"""')[2]
+
+
 def test_datasets_draw_without_sklearn():
     """The module reads nothing of scikit-learn (the card's machine has
     none)."""
@@ -220,6 +234,49 @@ def test_time_fn_and_device_time_chained_on_the_host_clock():
     chained = profiling.device_time_chained(lambda c: c @ x * 1e-3, x, repeats=4, trials=2)
     assert chained["repeats"] == 4 and len(chained["trials_s"]) == 2
     assert chained["device_s"] > 0 and chained["t_2r_s"] > 0
+
+
+def test_compile_cache_points_the_kernel_build_at_its_directory(tmp_path, monkeypatch):
+    """``enable_persistent_compile_cache(dir)`` makes the CUDA build look in
+    and write to ``dir``; with no argument the package's ``_build/``."""
+    from gaussian_process_tpu_torch.ops.cuda import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(_build, "build_info", {})
+    profiling.enable_persistent_compile_cache(str(tmp_path / "cache"))
+    assert _build.BUILD_DIR == tmp_path / "cache"
+    # a library for these exact sources is loaded from there, not rebuilt
+    (tmp_path / "cache").mkdir()
+    lib = tmp_path / "cache" / f"libgp_kernels_{_build._digest()}.so"
+    lib.write_bytes(b"")
+    assert _build.build() == lib
+    # and a build writes there: it makes the directory before it asks for nvcc
+    profiling.enable_persistent_compile_cache(str(tmp_path / "fresh"))
+
+    def no_nvcc():
+        raise RuntimeError("no nvcc in this test")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    with pytest.raises(RuntimeError, match="no nvcc in this test"):
+        _build.build()
+    assert (tmp_path / "fresh").is_dir()
+    profiling.enable_persistent_compile_cache()
+    assert _build.BUILD_DIR == _build.DEFAULT_BUILD_DIR == (
+        ROOT / "gaussian_process_tpu_torch" / "_build")
+
+
+@pytest.mark.parametrize("example", sorted(
+    f.stem for f in (ROOT / "examples_torch").glob("*.py")))
+def test_examples_enable_the_compile_cache_first(example):
+    """Each example's ``main`` calls the cache first, as each JAX example
+    does."""
+    import ast
+
+    tree = ast.parse((ROOT / "examples_torch" / f"{example}.py").read_text())
+    main = next(f for f in tree.body if isinstance(f, ast.FunctionDef) and f.name == "main")
+    first = main.body[0]
+    assert isinstance(first, ast.Expr) and isinstance(first.value, ast.Call)
+    assert ast.unparse(first.value.func) == "profiling.enable_persistent_compile_cache"
 
 
 def test_stopwatch_phases_and_trace(tmp_path):

@@ -417,6 +417,123 @@ def multiclass_accuracy(world, seed, max_iters):
     return {"accuracy": float(np.mean(_np(pred.label) == yt)), "converged": st.converged}
 
 
+def _records(records):
+    """The audit's records, their dtypes as names ("float32")."""
+    return [dict(rec, dtype=str(rec["dtype"]).replace("torch.", "")) for rec in records]
+
+
+def _equal(a, b):
+    import torch
+
+    return all(torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v
+               for u, v in zip(a, b))
+
+
+def _audited(fn):
+    """``fn()`` unaudited and under the collective recorder: the audited
+    result, the records, whether the two results have equal bits, and
+    whether the recorder is gone afterwards."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from gaussian_process_tpu_torch.parallel import comm_model
+
+    plain = fn()
+    out, records = comm_model.audit_collectives(fn)
+    return out, {"records": _records(records), "bitwise_equal": _equal(plain, out),
+                 "mode_left": _get_current_dispatch_mode() is not None}
+
+
+@case
+def comm_posterior(world, n, d, t, seed, dtype):
+    import torch
+
+    from gaussian_process_tpu_torch import ops, parallel
+
+    x, y, xt = problem(n, d, t, seed)
+    dt = getattr(torch, dtype)
+    on = lambda a: torch.as_tensor(np.asarray(a), dtype=dt)  # noqa: E731
+    p = {"sigma": on(1.0), "lengthscale": on(1.0)}
+    _, res = _audited(lambda: parallel.distributed_posterior(
+        ops.RBF(), p, on(x), on(y), on(xt), mesh=_mesh()))
+    return res
+
+
+@case
+def comm_cg(world, n, d, t, seed, solver, max_iters):
+    import torch
+
+    from gaussian_process_tpu_torch import ops, parallel
+
+    x, y, xt = problem(n, d, t, seed)
+    on = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)  # noqa: E731
+    p = {"sigma": on(1.0), "lengthscale": on(1.0)}
+    fn = getattr(parallel, solver)
+    out, res = _audited(lambda: fn(ops.RBF(), p, on(x), on(y), on(xt), mesh=_mesh(),
+                                   max_iters=max_iters))
+    res["iters"] = out[-2]
+    return res
+
+
+@case
+def comm_kinds(world):
+    """One of each collective the tier issues, under the recorder, then one
+    more after it."""
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_process_tpu_torch.parallel import comm_model, mesh as pmesh
+
+    me = dist.get_rank()
+    with comm_model.record_collectives() as records:
+        pmesh.all_reduce(torch.ones(3, 2), None)
+        pmesh.all_gather_rows(torch.ones(2, 3), None)
+        out = torch.empty(2)
+        dist.reduce_scatter_tensor(out, torch.ones(2 * world))
+        dist.broadcast(out, src=0)
+        dist.barrier()
+        recv = torch.empty(4, dtype=torch.float64)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, torch.ones(4, dtype=torch.float64), (me + 1) % world),
+                dist.P2POp(dist.irecv, recv, (me - 1) % world)]):
+            req.wait()
+    seen = len(records)
+    dist.all_reduce(torch.ones(1))
+    return {"records": _records(records), "after": len(records) - seen}
+
+
+@case
+def comm_train_reduce_scatter(world, n, d, seed):
+    """One training step whose gather's backward takes the NCCL branch
+    (``reduce_scatter_tensor``, which gloo runs too), audited, against the
+    same step through the gloo branch."""
+    import types
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_process_tpu_torch import ops, parallel
+    from gaussian_process_tpu_torch.parallel import comm_model
+    from gaussian_process_tpu_torch.parallel import train as ptrain
+
+    x, y = data(n, d, seed)
+
+    def one_step():
+        step, init = parallel.make_distributed_train_step(ops.RBF(), mesh=_mesh())
+        batch = {"sigma": torch.ones(1, dtype=torch.float64), "lengthscale": _t([1.0])}
+        res = step(batch, init(batch), _t(x), _t(y))
+        return [res.lml] + ops.kernels.tree_leaves(res.params)
+
+    gloo_branch = one_step()
+    as_nccl = types.SimpleNamespace(**{k: getattr(dist, k) for k in dir(dist)
+                                       if not k.startswith("__")})
+    as_nccl.get_backend = lambda group=None: dist.Backend.NCCL
+    with mock.patch.object(ptrain, "dist", as_nccl):
+        out, records = comm_model.audit_collectives(one_step)
+    return {"records": _records(records), "max_abs_diff": max(
+        float(torch.max(torch.abs(a - b))) for a, b in zip(out, gloo_branch))}
+
+
 # ---------------------------------------------------------- running the ranks
 
 
