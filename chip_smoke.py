@@ -45,14 +45,19 @@ one JSON line:
    error < 1e-2);
 6. kernels_bwd: K4's two CUDA backward sweeps against their plain version
    in float64 (dL/dcoef within 1e-3 relative per coefficient, dL/dx within
-   2e-4 x max |plain|) for RBF, Matern 5/2 and co2 without White at
-   n in {4096, 3001}, r in {1, 8, 9}: the full sweep same-set and
-   cross-set, with and without dx, the symmetric sweep same-set without
-   dx; the params gradient through the CUDA ``gram_matvec`` (the symmetric
-   sweep) against autograd through the plain version; then at n = 102400
-   the symmetric sweep at the width a training step hands it (r = 9) and at
-   r = 1, timed beside the full sweep and the plain VJP on the same inputs,
-   and the full sweep at its own path's shape (n = 4096, r = 65);
+   2e-4 x max |plain|) for RBF, Matern 1/2 and 5/2 and co2 without White at
+   n in {4096, 3001}, r in {1, 8, 9, 65}: the full sweep same-set and
+   cross-set, with and without dx (on a compiled leaf dL/dcoef within
+   2e-5, which the plain VJP on TF32-rounded ct and V, a 1xTF32 G, must
+   miss on every MMA case), the symmetric sweep same-set without dx; the
+   params gradient through the CUDA ``gram_matvec`` (the symmetric sweep)
+   against autograd through the plain version; then the full sweep at its
+   timed shapes (n = 4096, r = 65, the estimator's; n = 102400 same set,
+   no dx, at r = 9, 1 and 65; n = 102400 x 51207, r = 9, with dx, at d = 4
+   and at d = 9) against float64, run twice with equal bits, timed beside
+   the fp32 plain VJP and its fp32 and tensor-core bounds, and at r = 9
+   and 1 beside the symmetric sweep on the same inputs; and at r = 1, 2, 4
+   (its FMA passes) and 5, 8 (its 8-column MMA pass), the crossover;
 7. train_exact: ``GPRegressor(...).fit(x, y, optimize=True, max_iters=50)``
    (Adam, log transform) at n = 8192 in fp32, gated against the same run in
    float64 (rel LML 3e-4, rel params 1e-3); it must launch K1 and K5, one
@@ -65,6 +70,10 @@ one JSON line:
    gradient (64 probes: 65 columns, past the symmetric rule, so one full
    K4 sweep) within 0.1 of the exact float64 LML gradient, and 10 steps
    (a symmetric sweep each) raising the exact LML by more than 1.0;
+   then train_large_probes (``default_rng([0, 20])``): one step of
+   ``opt.tune_large_scale`` with 64 probes at n = 102400 (phase 8's
+   settings): a 65-column block CG solve (K2) and exactly one full K4 sweep
+   and no symmetric one, timed twice;
 9. classify_dense: ``GPBinaryClassifier`` and ``GPMulticlassClassifier``
    (C = 3) ``fit(..., solver="cholesky")`` and ``predict_proba`` at
    n = 4096, m = 2048, d = 2, RBF(1, 1), fp32 gated against float64 on the
@@ -184,13 +193,16 @@ Then a line ``{"kernels": [...]}``: per kernel its source, the TPU kernel it
 replaces, its launches on the main paths, its error against its plain
 version, its time, the plain version's, its bound (the larger of its fp32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s, from this run's shapes;
-for K2 its TF32 products at 495 TFLOP/s against its entries at 67) and,
-where one PyTorch call computes the same function, that call's time.
+for K2 its TF32 products (r columns, not the MMA's padding) at 495
+TFLOP/s against its entries at 67; for
+K4's full sweep, at the 64-probe step's n = 102400, r = 65, the smaller of
+its all-fp32 bound and that tensor-core one) and, where one PyTorch call
+computes the same function, that call's time.
 Last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; so does a machine without CUDA. Each phase draws its inputs from
 its own generator, ``np.random.default_rng([0, k])`` with k fixed for the
-phase (phases 13-19 take k = 13 to 19), so a phase that draws more
-leaves the others' inputs as they were.
+phase (phases 13-19 take k = 13 to 19, train_large_probes 20), so a phase
+that draws more leaves the others' inputs as they were.
 """
 
 from __future__ import annotations
@@ -243,6 +255,11 @@ CLS_R = (1, 3)
 # training step's r = 9: their instruction mix is reported
 K2_SASS = ("matvec_full_tc_kernel<9,4,1>", "matvec_full_tc_kernel<16,4,1>")
 K4_SYM_SASS = ("matvec_bwd_sym_kernel<9,4,1>",)
+# K4's full sweep, compiled RBF at d <= 4 with no dx: its MMA passes at the
+# 64-probe step's r = 65 (72 columns) and the training width r = 9 (16), its
+# register-FMA pass at r = 1
+K4_FULL_SASS = ("matvec_bwd_full_kernel<1,72,4,1,0>", "matvec_bwd_full_kernel<1,16,4,1,0>",
+                "matvec_bwd_full_kernel<0,1,4,1,0>")
 # K3 against K2 on the same inputs, recorded for the sweep rule's gate
 CROSS_R, CROSS_N = (9, 16, 33, 64), (4096, 102400)
 SOURCES = {
@@ -268,11 +285,30 @@ REPLACES = {
 # K4 vs its plain version in float64: dL/dcoef per coefficient (fp32 entry
 # products summed in float64), dL/dx as the forward's bound
 BWD_COEF_RTOL = 1e-3
+# the full sweep's dL/dcoef on a compiled leaf, whose fp32 entries err a few
+# 1e-6: tight enough that G formed in 1xTF32 (ct and V rounded to TF32,
+# about 5e-4 an entry) fails it, which kernels_bwd shows on every MMA case
+# by the plain VJP on the rounded inputs; an interpreted tree's entries
+# (co2's, up to about 6e-5) keep BWD_COEF_RTOL alone
+BWD_TF32_RTOL = 2e-5
 # the width a training step hands K4 ([alpha | z], 1 + 8 probes), and r = 1
 BWD_R = (9, 1)
 BWD_CHECK_N = (4096, 3001)  # K4's sweeps against the plain VJP
-# the full K4 sweep's own path: the n = 4096 estimator, 64 probes
-BWD_FULL_N, BWD_FULL_R = 4096, 65
+# their widths there: the full sweep's register-FMA pass (1) and its MMA
+# passes of 8, 16 and 72 columns
+BWD_CHECK_R = (1, 8, 9, 65)
+# the widths at which the full sweep's FMA passes (up to 4) meet its
+# narrowest MMA pass (8 columns from r = 5), timed at n = 102400
+K4_NARROW_R = (1, 2, 4, 5, 8)
+# K4's full sweep timed at (n, m or None for the same set, r, dx, d): the
+# n = 4096 estimator's, the training step's width and r = 1 on the
+# symmetric sweep's inputs, the 64-probe step's r = 65 at n = 102400, and
+# a cross-set call that wants dx, at d = D (x in registers) and at d = 9
+# (x in a loop over d)
+K4_FULL_SHAPES = ((4096, None, 65, False, D), (102400, None, 9, False, D),
+                  (102400, None, 1, False, D), (102400, None, 65, False, D),
+                  (102400, 51207, 9, True, D), (102400, 51207, 9, True, 9))
+PROBE_STEP_PROBES = 64  # the accurate estimator's probes: one full K4 sweep a step
 GATE_PARAMS = 1e-3  # train_exact: rel params, fp32 vs float64
 TRAIN_STEPS, TRAIN_PROBES, TRAIN_RANK = 3, 8, 2048
 # K1 against the plain gram: KERNEL_RTOL, and the JAX package's absolute
@@ -325,8 +361,13 @@ def add_launches(counts: dict) -> None:
         PATH_LAUNCHES[name] += value
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for a phase; ``t``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "t": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -402,19 +443,20 @@ def _ptxas_usage(log: str) -> list:
 def _sass_mix(lib_path: str, kernels) -> dict:
     """Per kernel instantiation named in ``kernels``: its instructions in
     ``cuobjdump -sass`` of the built library, counted by opcode (the 12
-    most frequent) and in all."""
+    most frequent) and in all. One pass over the dump, whose millions of
+    lines are matched only inside the named kernels."""
     cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
+    instruction = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
     ops_of, name = {}, None
     for line in text.splitlines():
-        func = re.search(r"Function : (\S+)", line)
-        if func:
-            name = _kernel_name(func.group(1))
-            continue
-        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if ins and name in kernels:
-            ops_of.setdefault(name, []).append(ins.group(2))
+        if "Function : " in line:
+            name = _kernel_name(line.split("Function : ", 1)[1].split()[0])
+        elif name in kernels:
+            ins = instruction.search(line)
+            if ins:
+                ops_of.setdefault(name, []).append(ins.group(2))
     return {k: {"total": len(v), **dict(collections.Counter(v).most_common(12))}
             for k, v in ops_of.items()}
 
@@ -425,13 +467,19 @@ def phase_build() -> None:
     _build.load()
     seconds = time.perf_counter() - t0
     ptxas = _ptxas_usage(_build.build_info.get("ptxas", ""))
+    mix = _sass_mix(lib_path, K2_SASS + K4_SYM_SASS + K4_FULL_SASS)
     emit("build", seconds=seconds, nvcc_seconds=_build.build_info.get("seconds"),
+         source_seconds=_build.build_info.get("source_seconds"),
          ptxas=ptxas,
          # K1 and K5's backward: registers and spills of every instantiation
          gram_ptxas=[r for r in ptxas if r["kernel"].startswith("gram_kernel")],
          gram_bwd_ptxas=[r for r in ptxas if r["kernel"].startswith("gram_bwd_kernel")],
-         k2_sass_mix=_sass_mix(lib_path, K2_SASS),
-         k4_sym_sass_mix=_sass_mix(lib_path, K4_SYM_SASS))
+         k2_sass_mix={k: v for k, v in mix.items() if k in K2_SASS},
+         k4_sym_sass_mix={k: v for k, v in mix.items() if k in K4_SYM_SASS},
+         # K4's full sweep: registers and spills of every instantiation, and
+         # the instruction mix of three
+         k4_full_ptxas=[r for r in ptxas if r["kernel"].startswith("matvec_bwd_full_kernel")],
+         k4_full_sass_mix={k: v for k, v in mix.items() if k in K4_FULL_SASS})
 
 
 def _case_kernels(device):
@@ -966,10 +1014,20 @@ def _centred(x1, x2):
     return x1c, (x1c if x2 is None else (x2 - c).contiguous())
 
 
-def _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx, sweep="gram_matvec_bwd"):
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 t rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as the kernels' ``cvt.rna.tf32.f32`` rounds."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx, sweep="gram_matvec_bwd",
+               control=False):
     """One of K4's sweeps (``sweep``: the full one, or the symmetric one,
     same-set without dx) once against the float64 plain VJP on the same
-    (fp32) inputs; returns the errors."""
+    (fp32) inputs; returns the errors. The full sweep on a compiled leaf
+    is also held to BWD_TF32_RTOL; with ``control``, there, the plain VJP
+    on ct and V rounded to TF32 (what a 1xTF32 G would give) must miss
+    that gate, which shows the gate tells 3xTF32 from 1xTF32."""
     program, coefs = kops.encode(kernel, params)
     coef = kops.coef_vector(coefs, dtype=torch.float32, device=x1c.device)
     need_l2 = tk.needs_l2(kernel)
@@ -992,6 +1050,18 @@ def _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx, sweep="gram_matvec_bwd"
             f"{sweep} dL/dcoef within {BWD_COEF_RTOL} (got {coef_err:.3e})")
     out = {"coef_rel_err": coef_err,
            "coef_abs_err": float(torch.max(torch.abs(d_coef.double() - want)))}
+    if sweep == "gram_matvec_bwd" and kops.sym_route(program):
+        require(coef_err <= BWD_TF32_RTOL, f"the full sweep's dL/dcoef on a compiled leaf "
+                f"within {BWD_TF32_RTOL} (got {coef_err:.3e})")
+        if control:
+            one, _ = kops.gram_matvec_vjp_reference(
+                program, kops.coef_vector(coefs, dtype=torch.float64, device=x1c.device),
+                x1c.double(), x2c.double(), _tf32(v).double(), _tf32(ct).double(),
+                need_l2=need_l2, want_dx=False)
+            out["tf32_1x_coef_rel_err"] = float(torch.max(torch.abs(one - want) / torch.abs(want)))
+            require(out["tf32_1x_coef_rel_err"] > BWD_TF32_RTOL,
+                    f"a 1xTF32 G misses the gate {BWD_TF32_RTOL} "
+                    f"(got {out['tf32_1x_coef_rel_err']:.3e})")
     if want_dx:
         err, scale = _max_err(d_x.double(), want_dx_)
         out.update(dx_abs_err=err, dx_max_abs_plain=scale)
@@ -1032,13 +1102,16 @@ def _grad_fault_repro(device, gen, cases) -> list:
 
 
 def phase_kernels_bwd(device, gen: np.random.Generator) -> dict:
-    cases = _case_kernels(device)
+    # the symmetric sweep's four families: compiled RBF, Matern 1/2 and 5/2,
+    # co2 without White interpreted
+    cases = {**_case_kernels(device), "matern12": (ops.Matern(nu=0.5), convert.params_from_numpy(
+        {"sigma": 1.2, "lengthscale": 0.9}, device=device, dtype=torch.float32))}
     checked = []
     for n in BWD_CHECK_N:
         x = torch.tensor(gen.uniform(-5, 5, (n, D)), dtype=torch.float32, device=device)
         x2 = torch.tensor(gen.uniform(-5, 5, (n // 2 + 7, D)), dtype=torch.float32,
                           device=device)
-        for r in (1, 8, 9):
+        for r in BWD_CHECK_R:
             for same in (True, False):
                 x1c, x2c = _centred(x, None if same else x2)
                 m = x2c.shape[0]
@@ -1049,80 +1122,185 @@ def phase_kernels_bwd(device, gen: np.random.Generator) -> dict:
                 sweeps = [("gram_matvec_bwd", False), ("gram_matvec_bwd", True)]
                 if same:
                     sweeps.append(("gram_matvec_bwd_sym", False))
+                mma = kops.bwd_full_passes(r)[2]
                 for family, (kernel, params) in cases.items():
                     for sweep, want_dx in sweeps:
-                        errs, _ = _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx, sweep)
+                        errs, _ = _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx, sweep,
+                                             control=sweep == "gram_matvec_bwd" and mma
+                                             and not want_dx)
                         checked.append({"kernel": sweep, "family": family, "n": n, "m": m,
                                         "r": r, "same": same, "dx": want_dx, **errs})
     emit("kernels_bwd_vs_plain",
-         tolerance=f"dL/dcoef rel <= {BWD_COEF_RTOL} per coefficient (plain in float64); "
+         tolerance=f"dL/dcoef rel <= {BWD_COEF_RTOL} per coefficient (plain in float64), "
+                   f"<= {BWD_TF32_RTOL} for the full sweep on a compiled leaf; "
                    f"dL/dx abs <= {KERNEL_RTOL} x max|plain|",
          worst_coef_rel_err={k: max(c["coef_rel_err"] for c in checked if c["kernel"] == k)
                              for k in ("gram_matvec_bwd", "gram_matvec_bwd_sym")},
+         # the full sweep on a compiled leaf against what a 1xTF32 G gives
+         worst_compiled_full_coef_rel_err=max(
+             c["coef_rel_err"] for c in checked
+             if c["kernel"] == "gram_matvec_bwd" and c["family"] != "co2_no_white"),
+         least_tf32_1x_coef_rel_err=min(c["tf32_1x_coef_rel_err"] for c in checked
+                                        if "tf32_1x_coef_rel_err" in c),
          cases=len(checked), rows=checked)
     emit("grad_fault_repro", rows=_grad_fault_repro(device, gen, cases))
 
-    # at the training step's shape: n = 102400, RBF(1, 2), no x-gradient;
-    # both sweeps on the same inputs, in turns (plain, full, symmetric,
-    # symmetric, full, plain)
-    kernel, params = cases["rbf"]
-    x = torch.tensor(gen.uniform(-5, 5, (N_BIG, D)), dtype=torch.float32, device=device)
-    x1c, _ = _centred(x, None)
-    rows = []
-    for r in BWD_R:
-        v = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
-        ct = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
-        errs, (program, coef, need_l2) = _bwd_check(kernel, params, x1c, x1c, v, ct, False)
-        sym_errs, _ = _bwd_check(kernel, params, x1c, x1c, v, ct, False, "gram_matvec_bwd_sym")
-        full = lambda: kops.matvec_bwd_cuda(program, coef, x1c, x1c, v, ct, need_l2=need_l2,
-                                            want_dx=False)
-        sym = lambda: kops.matvec_bwd_sym_cuda(program, coef, x1c, v, ct, need_l2=need_l2)
-        plain = lambda: kops.gram_matvec_vjp_reference(program, coef, x1c, x1c, v, ct,
-                                                       need_l2=need_l2, want_dx=False)
-        again = sym()
-        plain_a, full_a = _time_ms(plain, 1), _time_ms(full, 3)
-        sym_a, sym_b = _time_ms(sym, 5), _time_ms(sym, 5)
-        full_b, plain_b = _time_ms(full, 3), _time_ms(plain, 1)
-        plain_ms = min(plain_a, plain_b)
-        # per entry: the evaluation, the leaf's derivatives (about six
-        # flops), the G entry (2 r) and the coefficient sums (4); the
-        # symmetric sweep's n (n + 1) / 2 pairs each take a 2 r-term pair
-        # weight (4 r)
-        rows.append({"kernel": "gram_matvec_bwd", "n": N_BIG, "r": r, **errs,
-                     "max_abs_err": errs["coef_abs_err"], "ms": min(full_a, full_b),
-                     "plain_ms": plain_ms, "ms_runs": [full_a, full_b],
-                     "plain_ms_runs": [plain_a, plain_b],
-                     **_bound(N_BIG ** 2 * (_entry_flops(D) + 6 + 2 * r + 4),
-                              (N_BIG * D + 2 * N_BIG * r) * 4)})
-        rows.append({"kernel": "gram_matvec_bwd_sym", "n": N_BIG, "r": r, **sym_errs,
-                     "max_abs_err": sym_errs["coef_abs_err"], "ms": min(sym_a, sym_b),
-                     "plain_ms": plain_ms, "ms_runs": [sym_a, sym_b],
-                     "plain_ms_runs": [plain_a, plain_b],
-                     "full_sweep_ms": min(full_a, full_b),
-                     "passes_width": list(kops.bwd_sym_passes(r)),
-                     "bitwise_equal": bool(torch.equal(sym(), again)),
-                     **_bound(N_BIG * (N_BIG + 1) / 2 * (_entry_flops(D) + 6 + 4 * r + 4),
-                              (N_BIG * D + 2 * N_BIG * r) * 4)})
-        require(rows[-1]["bitwise_equal"], f"the symmetric K4 sweep twice at r = {r}: equal bits")
-    # the full sweep at its own path's shape (the n = 4096 estimator)
-    n, r = BWD_FULL_N, BWD_FULL_R
-    xf = torch.tensor(gen.uniform(-5, 5, (n, D)), dtype=torch.float32, device=device)
-    x1c, _ = _centred(xf, None)
-    v = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
-    ct = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
-    errs, (program, coef, need_l2) = _bwd_check(kernel, params, x1c, x1c, v, ct, False)
-    row = _in_turns(lambda: kops.matvec_bwd_cuda(program, coef, x1c, x1c, v, ct,
-                                                 need_l2=need_l2, want_dx=False),
-                    lambda: kops.gram_matvec_vjp_reference(program, coef, x1c, x1c, v, ct,
-                                                           need_l2=need_l2, want_dx=False),
-                    20, 5)
-    row.update(kernel="gram_matvec_bwd", n=n, r=r, **errs, max_abs_err=errs["coef_abs_err"],
-               **_bound(n ** 2 * (_entry_flops(D) + 6 + 2 * r + 4), (n * D + 2 * n * r) * 4))
+    # K4's full sweep at its timed shapes against float64, beside its plain
+    # version and (same set, r in BWD_R) the symmetric sweep on the same
+    # inputs; then the FMA passes against the narrowest MMA pass
+    rows = _k4_full_rows(device, np.random.default_rng([0, 7, 1]))
+    crossover = _k4_full_crossover(device, np.random.default_rng([0, 7, 2]))
     emit("kernels_bwd_timed", kernel="RBF(sigma=1, lengthscale=2)", plain="fp32 plain VJP",
-         rows=rows, full_sweep_path_shape=row)
-    return {"gram_matvec_bwd": row,
+         rows=rows, fma_mma_crossover=crossover)
+    full = [t for t in rows if t["kernel"] == "gram_matvec_bwd"]
+    return {"gram_matvec_bwd": next(t for t in full if (t["n"], t["r"]) == (N_BIG, 65)),
             "gram_matvec_bwd_sym": next(t for t in rows if t["kernel"] == "gram_matvec_bwd_sym"
                                         and t["r"] == BWD_R[0])}
+
+
+def _k4_full_bounds(n: int, m: int, r: int, want_dx: bool, d: int) -> dict:
+    """K4's full sweep's bounds at a shape (RBF). ``fp32_bound_ms``:
+    each entry's work on the fp32 pipe (the entry, six operations of leaf
+    derivatives, four of coefficient sums, 2 d of dx where wanted, and the
+    2 r of its G entry); ``k2_style_bound_ms``: G by 3xTF32 MMAs
+    (3 x 2 n m r operations at the dense TF32 rate) while the rest of
+    the entry work runs on the fp32 pipe, the larger of the two units'
+    times. ``bound_ms`` is the smaller of the two designs' bounds, and
+    never below the bytes (each input read once, dx written once)."""
+    extra = 6 + 4 + (2 * d if want_dx else 0)
+    nbytes = (n * d + m * d + m * r + n * r + (n * d if want_dx else 0)) * 4
+    bytes_ms = nbytes / HBM_BYTES * 1e3
+    fp32_ms = n * m * (_entry_flops(d) + extra + 2 * r) / FP32_FLOPS * 1e3
+    tf32_ms = 3 * 2 * n * m * r / TF32_FLOPS * 1e3
+    entry_ms = n * m * (_entry_flops(d) + extra) / FP32_FLOPS * 1e3
+    k2_ms = max(tf32_ms, entry_ms)
+    ops_ms = min(fp32_ms, k2_ms)
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "fp32_bound_ms": max(fp32_ms, bytes_ms), "k2_style_bound_ms": max(k2_ms, bytes_ms),
+            "tf32_ms": tf32_ms, "entry_ms": entry_ms}
+
+
+def _k4_full_rows(device, gen: np.random.Generator) -> list:
+    """K4's full sweep at K4_FULL_SHAPES (RBF(1, 2)): its errors
+    against the float64 plain VJP, its ms and the fp32 plain VJP's (turns:
+    plain, kernel, kernel, plain; CUDA events; at n = 4096 also queued
+    behind a device sleep, the card's own time), equal bits on a rerun, and
+    its bounds; at the same-set widths of BWD_R the symmetric sweep on the
+    same inputs."""
+    kernel, params = _case_kernels(device)["rbf"]
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=device)
+    need_l2 = tk.needs_l2(kernel)
+    rows = []
+    for n, m, r, want_dx, d in K4_FULL_SHAPES:
+        spread = 5.0 * (D / d) ** 0.5  # squared distances as at d = D
+        x = torch.tensor(gen.uniform(-spread, spread, (n, d)), dtype=torch.float32,
+                         device=device)
+        x2 = None if m is None else torch.tensor(gen.uniform(-spread, spread, (m, d)),
+                                                 dtype=torch.float32, device=device)
+        x1c, x2c = _centred(x, x2)
+        mm = x2c.shape[0]
+        v = torch.tensor(gen.standard_normal((mm, r)), dtype=torch.float32, device=device)
+        ct = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
+        full = lambda: kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct,  # noqa: E731
+                                            need_l2=need_l2, want_dx=want_dx)
+        reps = 20 if n * mm < 10 ** 8 else 3
+        row = {"kernel": "gram_matvec_bwd", "n": n, "m": mm, "r": r, "d": d,
+               "same": m is None, "dx": want_dx}
+        errs, _ = _bwd_check(kernel, params, x1c, x2c, v, ct, want_dx)
+        plain = lambda: kops.gram_matvec_vjp_reference(  # noqa: E731
+            program, coef, x1c, x2c, v, ct, need_l2=need_l2, want_dx=want_dx)
+        row.update(_in_turns(full, plain, reps, 1), **errs, max_abs_err=errs["coef_abs_err"])
+        if n * mm < 10 ** 8:  # the device's time, where the host's launches could pace it
+            row["queued_ms"] = _queued_ms(full, reps)
+        first, second = full(), full()
+        row["bitwise_equal"] = bool(torch.equal(first[0], second[0]) and (
+            not want_dx or torch.equal(first[1], second[1])))
+        require(row["bitwise_equal"], f"the full K4 sweep twice at {row}: equal bits")
+        row.update(_k4_full_bounds(n, mm, r, want_dx, d))
+        rows.append(row)
+        if m is None and r in BWD_R:
+            sym_errs, _ = _bwd_check(kernel, params, x1c, x1c, v, ct, False,
+                                     "gram_matvec_bwd_sym")
+            sym = lambda: kops.matvec_bwd_sym_cuda(program, coef, x1c, v, ct,  # noqa: E731
+                                                   need_l2=need_l2)
+            again = sym()
+            sym_a, sym_b = _time_ms(sym, 5), _time_ms(sym, 5)
+            rows.append({"kernel": "gram_matvec_bwd_sym", "n": n, "r": r, **sym_errs,
+                         "max_abs_err": sym_errs["coef_abs_err"], "ms": min(sym_a, sym_b),
+                         "ms_runs": [sym_a, sym_b], "plain_ms": row["plain_ms"],
+                         "full_sweep_ms": row["ms"],
+                         "passes_width": list(kops.bwd_sym_passes(r)),
+                         "bitwise_equal": bool(torch.equal(sym(), again)),
+                         # the n (n + 1) / 2 pairs each take a 2 r-term pair weight
+                         **_bound(n * (n + 1) / 2 * (_entry_flops(D) + 6 + 4 * r + 4),
+                                  (n * D + 2 * n * r) * 4)})
+            require(rows[-1]["bitwise_equal"],
+                    f"the symmetric K4 sweep twice at r = {r}: equal bits")
+    return rows
+
+
+def phase_train_large_probes(device, gen: np.random.Generator) -> dict:
+    """One step of ``opt.tune_large_scale`` with 64 probes at n = 102400
+    (phase 9's problem and settings: d = 4, RBF, Nyström rank 2048, cg_tol
+    1e-4): a block CG solve of 65 columns through K2 and one full K4 sweep
+    at r = 65. The step runs twice, the counts reset before each; the
+    second's launches must hold exactly one full K4 sweep and no symmetric
+    one, and are read as the path's."""
+    kernel = ops.RBF()
+    x, y, _ = _cg_problem(device, gen, N_BIG)
+    p0 = convert.params_from_numpy({"sigma": 1.3, "lengthscale": 1.7}, device=device,
+                                   dtype=torch.float32)
+    seconds, iters = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = opt.tune_large_scale(kernel, p0, x, y, noise_variance=1e-2, steps=1,
+                                   num_probes=PROBE_STEP_PROBES, precond_rank=TRAIN_RANK,
+                                   cg_tol=1e-4, cg_max_iters=200)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        iters.append(list(res.cg_iters))
+    counts = dict(kops.launch_counts)
+    add_launches(counts)
+    out = {"n": N_BIG, "d": D, "num_probes": PROBE_STEP_PROBES, "rank": TRAIN_RANK,
+           "cg_tol": 1e-4, "seconds": seconds, "cg_iters": iters,
+           "surrogate": float(res.lml_trace[0]),
+           "params": {k: float(v) for k, v in res.params.items()}, "launches": counts}
+    emit("train_large_probes", **out)
+    require(np.isfinite(out["surrogate"]), "finite surrogate")
+    require(counts["gram_matvec_bwd"] == 1 and counts["gram_matvec_bwd_sym"] == 0,
+            "the 64-probe step (65 columns) ran one full K4 sweep and no symmetric one")
+    return out
+
+
+def _k4_full_crossover(device, gen: np.random.Generator) -> list:
+    """K4's full sweep at n = 102400, same set, no dx, at K4_NARROW_R: the
+    FMA passes up to r = 4 beside the narrowest MMA pass (8 columns, r = 5
+    and 8), each the best of two turns (the widths up, then down; CUDA
+    events). The MMA pass's time does not grow from r = 5 to 8, so its
+    r = 5 time against the FMA pass's at r = 4 is the crossover that sets
+    ``kops.BWD_FULL_FMA``."""
+    kernel, params = _case_kernels(device)["rbf"]
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=device)
+    x = torch.tensor(gen.uniform(-5, 5, (N_BIG, D)), dtype=torch.float32, device=device)
+    x1c, _ = _centred(x, None)
+    runs = {}
+    for r in K4_NARROW_R:
+        v = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
+        ct = torch.tensor(gen.standard_normal((N_BIG, r)), dtype=torch.float32, device=device)
+        runs[r] = lambda v=v, ct=ct: kops.matvec_bwd_cuda(  # noqa: E731
+            program, coef, x1c, x1c, v, ct, need_l2=False, want_dx=False)
+    times = {r: [] for r in K4_NARROW_R}
+    for order in (K4_NARROW_R, K4_NARROW_R[::-1]):
+        for r in order:
+            times[r].append(_time_ms(runs[r], 3))
+    return [{"n": N_BIG, "r": r, "route": "mma" if kops.bwd_full_passes(r)[2] else "fma",
+             "width": kops.bwd_full_passes(r)[1], "ms": min(times[r]), "ms_runs": times[r]}
+            for r in K4_NARROW_R]
 
 
 def _rel_params(a, b) -> float:
@@ -1448,13 +1626,12 @@ def _bound(flops: float, nbytes: float) -> dict:
 
 
 def _bound_k2(n: int, m: int, d: int, r: int) -> dict:
-    """K2's bound: its 3 x 2 n m r_pad TF32 MMA operations (r_pad,
-    r rounded up to the MMA's 8 columns) at the dense TF32 rate, against
+    """K2's bound: its 3 x 2 n m r TF32 MMA operations (the function's r
+    columns, not the MMA's padding to 8) at the dense TF32 rate, against
     its n m entries on the fp32 pipe (two units that run at once, so the
     larger), against its bytes at the HBM rate; ``ops_unit`` says which
     unit bounds the operations."""
-    r_pad = -(-r // 8) * 8
-    mma_ms = 3 * 2 * n * m * r_pad / TF32_FLOPS * 1e3
+    mma_ms = 3 * 2 * n * m * r / TF32_FLOPS * 1e3
     entry_ms = n * m * _entry_flops(d) / FP32_FLOPS * 1e3
     bytes_ms = (n * d + m * d + m * r + n * r) * 4 / HBM_BYTES * 1e3
     ops_ms = max(mma_ms, entry_ms)
@@ -2459,6 +2636,7 @@ def main() -> int:
     timings.update(phase_kernels_bwd(device, gen(7)))
     train_data = phase_train_exact(device, gen(8))
     phase_train_large(device, gen(9))
+    phase_train_large_probes(device, gen(20))
     phase_classify_dense(device, gen(10))
     phase_classify_large(device, gen(11))
     phase_estimator_numpy(device, gen(12))

@@ -23,8 +23,8 @@ int full_x_width(int leaf, int d) { return leaf != 0 && d <= 4 ? 4 : 0; }
 // hi and lo in the B-fragment order of the sweep (gram_matvec_full.cuh):
 // for pass p, k-step s, 8-column tile j and lane l, the float4
 // (hi(k), hi(k + 4), lo(k), lo(k + 4)) of row k = 8 s + l % 4 and column
-// p 8 nt + 8 j + l / 4, zero past m and past r. lo is 0 where hi is
-// infinite, so an infinite V entry stays infinite rather than NaN.
+// p 8 nt + 8 j + l / 4, zero past m and past r (tf32_split: lo is 0 where
+// hi is infinite, so an infinite V entry stays infinite rather than NaN).
 __global__ void __launch_bounds__(THREADS)
     full_stage_kernel(const float* __restrict__ x2, const float* __restrict__ v,
                       const int* __restrict__ prog, const float* __restrict__ coef, int leaf,
@@ -54,9 +54,10 @@ __global__ void __launch_bounds__(THREADS)
     for (int h = 0; h < 2; ++h) {
       const int row = k + 4 * h;
       const float val = (row < m && col < r) ? v[(size_t)row * r + col] : 0.0f;
-      const unsigned hi = tf32_rna(val);
+      unsigned hi, lo;
+      tf32_split(val, hi, lo);
       hl[h] = __uint_as_float(hi);
-      hl[2 + h] = isinf(hl[h]) ? 0.0f : __uint_as_float(tf32_rna(val - hl[h]));
+      hl[2 + h] = __uint_as_float(lo);
     }
     vf[e] = make_float4(hl[0], hl[1], hl[2], hl[3]);
   }

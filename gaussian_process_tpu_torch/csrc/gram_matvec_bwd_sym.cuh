@@ -3,7 +3,7 @@
 // the kernel's postfix program) from the upper-triangle tiles, without
 // dL/dx: a training step's backward. Replaces _matvec_bwd_sweep of the JAX
 // package's ops/pallas/kernel_ops.py on that path; the full sweep
-// (gram_matvec_bwd.cu) keeps cross-set calls and those that want dx. The
+// (gram_matvec_bwd.cuh) keeps cross-set calls and those that want dx. The
 // kernel template lives here so that its instantiations can be compiled in
 // several sources at once: gram_matvec_bwd_sym.cu (the interpreted trees,
 // RBF and the launcher) and gram_matvec_bwd_sym_matern.cu (the Matern
@@ -21,9 +21,10 @@
 // exponential, a 2R-term pair weight and the leaf's few coefficient terms,
 // about 12 + 2R fp32 instructions a pair for the compiled RBF at d = 4, near
 // 5 ms of the fp32 pipe at r = 9 (the SFU's floor is 1.25 ms). x, V and ct
-// are a few MB and stay in L2. The full sweep evaluates all n^2 entries with
-// an interpreted leaf and the accurate expf, and stages ct and V per tile
-// behind three barriers.
+// are a few MB and stay in L2. The full sweep (gram_matvec_bwd.cuh)
+// evaluates all n^2 entries, each once, with G from registers or the tensor
+// cores; this one halves the entries and pays 2R FMAs a pair for the
+// weight.
 //
 // What the design does about it (K3's design, gram_matvec_sym.cuh):
 //   * Blocks walk strips. A block takes one work item (ti, j0, j1) of

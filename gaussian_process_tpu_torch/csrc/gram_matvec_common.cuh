@@ -1,10 +1,11 @@
 // Shared by the tile gram (K1, gram.cu) and its backward (K5, gram_bwd.cu),
 // the forward sweeps (K2, gram_matvec_full.cuh; K3, gram_matvec_sym.cuh) and
-// the backward sweeps (K4: gram_matvec_bwd.cu, the full sweep, and
+// the backward sweeps (K4: gram_matvec_bwd.cuh, the full sweep, and
 // gram_matvec_bwd_sym.cuh, the symmetric one): the postfix program's
 // opcodes, the per-entry leaf arithmetic and its hand-written derivatives,
 // the reverse pass through a program, the compiled leaves and their
-// backward terms, and the tile loaders. Keeping one copy means the backward
+// backward terms, the tile loaders, and the copies and 3xTF32 MMA pieces of
+// the tensor-core sweeps (K2, K4's full one). Keeping one copy means the backward
 // differentiates exactly the function that the forward evaluates.
 
 #pragma once
@@ -172,7 +173,7 @@ __device__ __forceinline__ void leaf_grad(int op, const float* c, float sq, floa
 
 // ------------------------------------------------------- the reverse pass
 //
-// Shared by the backward sweeps (gram_matvec_bwd.cu, the full sweep;
+// Shared by the backward sweeps (gram_matvec_bwd.cuh, the full sweep;
 // gram_matvec_bwd_sym.cuh, the symmetric one) and the tile gram's backward
 // (gram_bwd.cu). tree_grad keeps every instruction's forward value per
 // entry, in arrays of NI instructions and NC coefficients: the sweeps take
@@ -405,6 +406,50 @@ __device__ __forceinline__ void load_x(float* dst, const float* x, int row0, int
     else
       dst[idx] = val;
   }
+}
+
+// ------------------------------------------------- copies and TF32 MMAs
+//
+// Shared by the sweeps on the tensor cores: K2 (gram_matvec_full.cuh) and
+// K4's full sweep (gram_matvec_bwd.cuh).
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// a rounded to TF32 (10 mantissa bits), ties away from zero
+__device__ __forceinline__ unsigned tf32_rna(float a) {
+  unsigned t;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(t) : "f"(a));
+  return t;
+}
+
+// c += a b for one 16 x 8 x 8 tile: A row-major, B column-major, TF32 in,
+// fp32 accumulated
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a split into TF32 hi = cvt.rna(a) and lo = cvt.rna(a - hi), so that
+// hi + lo carries about fp32's precision (3xTF32); lo is 0 where hi is
+// infinite, so an infinite value stays infinite rather than NaN.
+__device__ __forceinline__ void tf32_split(float a, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(a);
+  const float h = __uint_as_float(hi);
+  lo = isinf(h) ? 0u : tf32_rna(a - h);
 }
 
 template <typename Kernel>

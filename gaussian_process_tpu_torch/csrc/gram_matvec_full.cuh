@@ -89,36 +89,6 @@ constexpr int FULL_WARPS = THREADS / 32;
 constexpr int FULL_STAGE = 64;   // x2 rows of a stage: 8 k-steps, 4 a k-half
 constexpr int FULL_M_ALIGN = FULL_STAGE;  // x2 rows are padded to whole stages
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// a rounded to TF32 (10 mantissa bits), ties away from zero
-__device__ __forceinline__ unsigned tf32_rna(float a) {
-  unsigned t;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(t) : "f"(a));
-  return t;
-}
-
-// c += a b for one 16 x 8 x 8 tile: A row-major, B column-major, TF32 in,
-// fp32 accumulated
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Shared memory of one block, in floats: the program, x1's rows (D = 0),
 // two stages of x2 and two of V's fragments (aliased by the k-halves' sum
 // at the end).

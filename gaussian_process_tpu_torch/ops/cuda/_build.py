@@ -29,10 +29,12 @@ DEFAULT_BUILD_DIR = PKG_DIR / "_build"
 # utils.profiling.enable_persistent_compile_cache)
 BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("chol_panel.cu", "gram.cu", "gram_bwd.cu", "gram_matvec.cu",
-           "gram_matvec_full_matern.cu", "gram_matvec_bwd.cu", "gram_matvec_bwd_sym.cu", "gram_matvec_bwd_sym_matern.cu",
-           "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
+           "gram_matvec_full_matern.cu", "gram_matvec_bwd.cu", "gram_matvec_bwd_rbf.cu",
+           "gram_matvec_bwd_matern12.cu", "gram_matvec_bwd_matern32.cu",
+           "gram_matvec_bwd_matern52.cu", "gram_matvec_bwd_sym.cu",
+           "gram_matvec_bwd_sym_matern.cu", "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
 HEADERS = ("gram_matvec_common.cuh", "gram_matvec_full.cuh", "gram_matvec_sym.cuh",
-           "gram_matvec_bwd_sym.cuh")
+           "gram_matvec_bwd.cuh", "gram_matvec_bwd_sym.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,7 +68,8 @@ def _digest() -> str:
 def build() -> Path:
     """Compile the sources unless a library for their exact content exists.
     One ``nvcc -c`` per source, all started together, then one link.
-    Records the compile seconds and ``-Xptxas -v`` report in ``build_info``."""
+    Records the compile seconds (in all, and each source's until its
+    compiler exits) and the ``-Xptxas -v`` report in ``build_info``."""
     lib_path = BUILD_DIR / f"libgp_kernels_{_digest()}.so"
     if lib_path.exists():
         build_info.setdefault("seconds", 0.0)
@@ -81,10 +84,23 @@ def build() -> Path:
         objs = [os.path.join(tmp, f"{Path(s).stem}.o") for s in SOURCES]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / s)]
                 for s, obj in zip(SOURCES, objs)]
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for c in cmds]
-        logs = [p.communicate() for p in procs]
-        for cmd, proc, (_, err) in zip(cmds, procs, logs):
+        # each compiler's output goes to a file (a pipe could fill and stall
+        # it while another is waited on); its wall seconds are recorded
+        outs = [open(f"{obj}.log", "w+") for obj in objs]
+        procs = [subprocess.Popen(c, stdout=o, stderr=subprocess.STDOUT, text=True)
+                 for c, o in zip(cmds, outs)]
+        per_source = {}
+        while len(per_source) < len(procs):
+            for src, proc in zip(SOURCES, procs):
+                if src not in per_source and proc.poll() is not None:
+                    per_source[src] = time.perf_counter() - t0
+            time.sleep(0.1)
+        logs = []
+        for o in outs:
+            o.seek(0)
+            logs.append(o.read())
+            o.close()
+        for cmd, proc, err in zip(cmds, procs, logs):
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err[-8000:]}"
@@ -96,7 +112,7 @@ def build() -> Path:
             raise RuntimeError(f"link failed:\n{' '.join(link)}\n{proc.stderr[-8000:]}")
         os.replace(so, lib_path)
     seconds = time.perf_counter() - t0
-    ptxas = "".join(err for _, err in logs)
+    ptxas = "".join(logs)
     (BUILD_DIR / "ptxas.log").write_text(ptxas)
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
     build_info.update(
@@ -104,6 +120,7 @@ def build() -> Path:
         cached=False,
         nvcc=version.stdout.strip().splitlines()[-1] if version.stdout else "",
         ptxas=ptxas,
+        source_seconds=per_source,
     )
     return lib_path
 
@@ -125,10 +142,14 @@ def load() -> ctypes.CDLL:
         lib.gm_full_tc_x_width.restype = i
         lib.gm_sym_smem_bytes.argtypes = [i, i]
         lib.gm_sym_smem_bytes.restype = ctypes.c_size_t
-        lib.gm_matvec_bwd.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, p]
+        lib.gm_matvec_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, p, *[i] * 13, p]
         lib.gm_matvec_bwd.restype = i
-        lib.gm_bwd_smem_bytes.argtypes = [i]
-        lib.gm_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_bwd_full_x_width.argtypes = [i, i]
+        lib.gm_bwd_full_x_width.restype = i
+        lib.gm_bwd_full_smem_bytes.argtypes = [i, i, i, i]
+        lib.gm_bwd_full_smem_bytes.restype = ctypes.c_size_t
+        lib.gm_bwd_full_resident.argtypes = [i, i, i, i, i]
+        lib.gm_bwd_full_resident.restype = i
         lib.gm_matvec_bwd_sym.argtypes = [p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, p]
         lib.gm_matvec_bwd_sym.restype = i
         lib.gm_bwd_sym_smem_bytes.argtypes = [i, i]

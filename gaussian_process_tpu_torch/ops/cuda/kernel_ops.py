@@ -14,11 +14,14 @@ CUDA kernels do the work on a CUDA tensor:
 - :func:`matvec_sym_cuda` (same-set upper-triangle sweep,
   ``csrc/gram_matvec_sym.cu``, replaces ``_matvec_fwd_sym_impl``), over work
   items that :func:`sym_schedule` builds on the host;
-- :func:`matvec_bwd_cuda` (the full backward sweep, ``csrc/gram_matvec_bwd.cu``,
-  replaces ``_matvec_bwd_sweep``) and :func:`matvec_bwd_sym_cuda` (the
-  symmetric backward sweep, ``csrc/gram_matvec_bwd_sym.cuh``, the same
-  function over the upper-triangle tiles for a same-set call that wants no
-  x-gradient, a training step's).
+- :func:`matvec_bwd_cuda` (the full backward sweep,
+  ``csrc/gram_matvec_bwd.cuh``, replaces ``_matvec_bwd_sweep``): every
+  entry once, G = ct V^T by register FMAs or 3xTF32 tensor-core MMAs
+  (:func:`bwd_full_passes`), the x2 rows split over blocks to fill the card
+  (:func:`bwd_full_split`); and :func:`matvec_bwd_sym_cuda` (the symmetric
+  backward sweep, ``csrc/gram_matvec_bwd_sym.cuh``, the same function over
+  the upper-triangle tiles for a same-set call that wants no x-gradient
+  after a symmetric forward, a training step's).
 
 :func:`gram` is the port's one dense-gram dispatcher: fp32 CUDA inputs and
 a stationary kernel take :func:`gram_ad` (``_GramFn``: the tile gram
@@ -84,7 +87,18 @@ MAX_BWD_COEF = 16
 BWD_SYM_WIDTHS = (1, 2, 4, 6, 9, 12, 16)
 BWD_SYM_LEAF_SUMS = 2
 LOG2E = 1.4426950408889634
-BWD_ROWS = 64  # x1 rows per block of the backward sweep (its partials' count)
+# the full backward sweep (csrc/gram_matvec_bwd.cuh): x1 rows of a block and
+# x2 rows of a stage; the pass widths it compiles for G = ct V^T, by
+# register FMAs (narrow) and by 3xTF32 MMAs (wide: whole 8-column k-steps,
+# at most 72 columns so that nothing spills); r up to the widest FMA pass
+# takes the FMAs (the crossover measured on the card, PERF.md). Its split
+# of the x2 stages over blocks: at most BWD_FULL_MAX_SPLIT, a block's fixed
+# work (its ct fragments, x1 rows and final sums) counted as
+# BWD_FULL_BLOCK_COST stages
+BWD_FULL_ROWS, BWD_FULL_STAGE = 128, 64
+BWD_FULL_FMA = (1, 2, 4)
+BWD_FULL_MMA = (8, 16, 24, 32, 48, 72)
+BWD_FULL_MAX_SPLIT, BWD_FULL_BLOCK_COST = 32, 2
 # the tile gram's backward (csrc/gram_bwd.cu): rows and columns of its
 # tiles, which count its partials
 GRAM_BWD_ROWS, GRAM_BWD_COLS = 32, 128
@@ -631,10 +645,12 @@ def gram_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: Optional[torc
 
 
 def gram_bwd_dx_scale(program, coef: torch.Tensor) -> torch.Tensor:
-    """The factor that turns the tile gram's backward's x-gradient sums
-    (``csrc/gram_bwd.cu``: sum q (a - b) over an entry's weights q) into
-    dL/dx1, as a float64 0-d tensor on coef's device: 2 for the interpreter
-    (q = ct dk/dsq on unscaled x). A compiled leaf's q = ct phi on x
+    """The factor that turns the x-gradient sums of the tile gram's backward
+    (``csrc/gram_bwd.cu``) and of the full backward sweep
+    (``csrc/gram_matvec_bwd.cuh``), sum q (a - b) over an entry's weights q,
+    into dL/dx1, as a float64 0-d tensor on coef's device: 2 for the
+    interpreter (q = ct dk/dsq on unscaled x; the sweep's ct is its G). A
+    compiled leaf's q = ct phi on x
     prescaled by s (``leaf_bwd_terms``) gives dk/dx_i = 2 dk/dsq (x_i - x_j):
     RBF 2 c0 c1 / s with s = sqrt(-c1 log2 e); a Matern's x' = c1 x,
     -c0 c1 (1/2 and 3/2) or -c0 c1 / 3 (5/2)."""
@@ -919,15 +935,86 @@ def matvec_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tens
     return out
 
 
+def bwd_full_passes(r: int) -> Tuple[int, int, bool]:
+    """The full backward sweep's column passes for r columns of V and ct:
+    ``(passes, columns a pass, mma)``. Up to BWD_FULL_FMA[-1] columns one
+    pass of the least FMA width that holds r (G by register FMAs); above,
+    3xTF32 MMA passes: the fewest of at most 72 columns, each the least of
+    BWD_FULL_MMA that holds its even share of r. r = 1, 3, 8, 9, 65, 130,
+    512 give (1, 1, False), (1, 4, False), (1, 8, True), (1, 16, True),
+    (1, 72, True), (2, 72, True), (8, 72, True)."""
+    if r <= BWD_FULL_FMA[-1]:
+        return 1, min(w for w in BWD_FULL_FMA if w >= r), False
+    tiles = -(-r // 8)
+    passes = -(-tiles // (BWD_FULL_MMA[-1] // 8))
+    share = 8 * -(-tiles // passes)
+    return passes, min(w for w in BWD_FULL_MMA if w >= share), True
+
+
+def bwd_full_split(n: int, m: int, resident: int) -> int:
+    """How many parts the full backward sweep splits its x2 stages into
+    (blockIdx.y), for ceil(n / 128) row blocks, ceil(m / 64) stages and
+    ``resident`` blocks that the card holds at once: the s in
+    1 .. min(stages, BWD_FULL_MAX_SPLIT) with the least
+    ceil(rows s / resident) (ceil(stages / s) + BWD_FULL_BLOCK_COST), the
+    waves times a block's length in stages; the least such s. n = m = 4096
+    on 132 blocks splits in 4 (128 blocks, one wave)."""
+    rows = -(-n // BWD_FULL_ROWS)
+    stages = -(-m // BWD_FULL_STAGE)
+    resident = max(1, resident)
+
+    def cost(s):
+        return -(-rows * s // resident) * (-(-stages // s) + BWD_FULL_BLOCK_COST)
+
+    return min(range(1, min(stages, BWD_FULL_MAX_SPLIT) + 1), key=lambda s: (cost(s), s))
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_full_resident(route: int, mma: bool, width: int, d: int, want_dx: bool,
+                       device: torch.device) -> int:
+    """The blocks of the full backward sweep's instantiation for this plan
+    that the card holds at once (the CUDA occupancy calculator times the
+    SMs), asked once per plan and device."""
+    from gaussian_process_tpu_torch.ops.cuda import _build
+
+    with torch.cuda.device(device):
+        got = _build.load().gm_bwd_full_resident(route, int(mma), width, d, int(want_dx))
+    if got <= 0:
+        raise RuntimeError(f"gm_bwd_full_resident failed: cudaError {-got}")
+    return got
+
+
+def bwd_full_finish(program, coef: torch.Tensor, part: torch.Tensor,
+                    pdx: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dL/dcoef, dL/dx1 or None) from the full backward sweep's partials:
+    ``part`` (one float64 row of sums per pass, split and row block) summed
+    in a fixed order and turned into dL/dcoef by :func:`bwd_sym_coef` (a
+    compiled leaf's S0, S1 rescaled); ``pdx`` (one fp32 partial of the
+    x-gradient sums per pass and split) summed and scaled to the caller's
+    coordinates by :func:`gram_bwd_dx_scale`."""
+    d_coef = bwd_sym_coef(program, coef, part.sum(dim=0))
+    if pdx is None:
+        return d_coef, None
+    return d_coef, gram_bwd_dx_scale(program, coef).to(pdx.dtype) * pdx.sum(dim=0)
+
+
 def matvec_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.Tensor,
                     v: torch.Tensor, ct: torch.Tensor, *, need_l2: bool,
                     want_dx: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The backward sweep: for L = <ct, K(x1, x2) v>, (dL/dcoef, dL/dx1 or
-    None) by the CUDA kernel. Centred contiguous fp32 CUDA tensors x1c
-    (n, d), x2c (m, d), v (m, r), ct (n, r); trees up to MAX_BWD_INSTR
-    instructions and MAX_BWD_COEF coefficients. The kernel writes one
-    float64 partial of dL/dcoef per 64-row block; they are summed here in
-    float64."""
+    """The full backward sweep: for L = <ct, K(x1, x2) v>, (dL/dcoef,
+    dL/dx1 or None) by the CUDA kernel (``csrc/gram_matvec_bwd.cuh``).
+    Centred contiguous fp32 CUDA tensors x1c (n, d), x2c (m, d), v (m, r),
+    ct (n, r), any r; trees up to MAX_BWD_INSTR instructions and
+    MAX_BWD_COEF coefficients. Chosen here, before the launch: the route
+    (:func:`sym_route`: one RBF or Matern leaf compiled on prescaled x), the
+    passes and the product for G = ct V^T (:func:`bwd_full_passes`: register
+    FMAs or 3xTF32 MMAs), and the split of the x2 rows over blocks
+    (:func:`bwd_full_split`, from the blocks the card holds at once). One
+    call is two device launches (a staging pass that prescales x2 and
+    stages V, then the sweep) and counts one. The kernel writes float64
+    partials of the coefficient sums and fp32 partials of dx per pass and
+    split, with no atomics; :func:`bwd_full_finish` sums them in a fixed
+    order, so a rerun gives equal bits."""
     from gaussian_process_tpu_torch.ops.cuda import _build
 
     _check_cuda_f32(coef=coef, x1=x1c, x2=x2c, v=v, ct=ct)
@@ -940,23 +1027,35 @@ def matvec_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.T
         )
     prog = _prog_tensor(program, MAX_BWD_INSTR, MAX_BWD_COEF, coef.numel(), x1c.device)
     lib = _build.load()
-    smem = lib.gm_bwd_smem_bytes(int(d))
+    route = sym_route(program)
+    passes, width, mma = bwd_full_passes(r)
+    smem = lib.gm_bwd_full_smem_bytes(route, int(mma), width, int(d))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
-    n_coef = coef.numel()
-    part = torch.empty((-(-n // BWD_ROWS), n_coef), dtype=torch.float64, device=x1c.device)
-    dx = torch.empty((n, d), dtype=torch.float32, device=x1c.device) if want_dx else None
+    splits = bwd_full_split(n, m, _bwd_full_resident(route, mma, width, int(d), bool(want_dx),
+                                                     x1c.device))
+    m_pad = _round_up(m, BWD_FULL_STAGE)
+    x2s = torch.empty((m_pad, lib.gm_bwd_full_x_width(route, d)), dtype=torch.float32,
+                      device=x1c.device)
+    vs = torch.empty((passes, m_pad, width * (2 if mma else 1)), dtype=torch.float32,
+                     device=x1c.device)
+    part = torch.empty((passes * splits * -(-n // BWD_FULL_ROWS),
+                        BWD_SYM_LEAF_SUMS if route else MAX_BWD_COEF),
+                       dtype=torch.float64, device=x1c.device)
+    pdx = torch.empty((passes * splits, n, d), dtype=torch.float32,
+                      device=x1c.device) if want_dx else None
     with torch.cuda.device(x1c.device):
         err = lib.gm_matvec_bwd(
-            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), ct.data_ptr(), part.data_ptr(),
-            dx.data_ptr() if want_dx else None, prog.data_ptr(), len(program),
-            coef.data_ptr(), n_coef, n, m, d, r, int(need_l2), int(want_dx),
+            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), ct.data_ptr(), x2s.data_ptr(),
+            vs.data_ptr(), part.data_ptr(), None if pdx is None else pdx.data_ptr(),
+            prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(), route, int(mma),
+            width, passes, splits, n, m, m_pad, d, r, int(need_l2), int(want_dx),
             _stream(x1c.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_bwd launch failed: cudaError {err}")
     launch_counts["gram_matvec_bwd"] += 1
-    return part.sum(dim=0).to(coef.dtype), dx
+    return bwd_full_finish(program, coef, part, pdx)
 
 
 def matvec_bwd_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tensor,
@@ -1113,8 +1212,11 @@ def _forward(spec: _Spec, coef, x1c, x2c, v) -> torch.Tensor:
 
 def _vjp(spec: _Spec, coef, x1c, x2c, v, ct, want_dx: bool):
     """(dL/dcoef, dL/dx1 or None): the plain version on a CPU tensor; on a
-    CUDA tensor the symmetric backward sweep for a same-set call that wants
-    no x-gradient (a training step's), else the full one."""
+    CUDA tensor the symmetric backward sweep for a same-set call whose
+    forward took the symmetric sweep and that wants no x-gradient (a
+    training step at r <= 64), else the full one (:func:`matvec_bwd_cuda`:
+    a cross-set call, one that wants dx, or a same-set call past the
+    symmetric rule, such as the 64-probe estimator's r = 65)."""
     if not x1c.is_cuda:
         return gram_matvec_vjp_reference(spec.program, coef, x1c, x2c, v, ct,
                                          need_l2=spec.need_l2, want_dx=want_dx)
@@ -1225,8 +1327,11 @@ def gram_matvec(
     TPU's bf16 split product stops at about 1.5e-5. On the card every sweep
     computes the same product under both modes: the full sweep 3xTF32 on
     the tensor cores, within a few 1e-6 of float64 at n = 102400 (more
-    precise than fp32 FMAs over the same sweep), the symmetric and
-    backward sweeps fp32 FMAs. On the CPU the plain version runs under
+    precise than fp32 FMAs over the same sweep), the symmetric one fp32
+    FMAs; the full backward sweep forms G = ct V^T in 3xTF32 past
+    BWD_FULL_FMA[-1] columns (fp32's precision, as the JAX sweep's
+    ``Precision.HIGHEST``), the symmetric one by fp32 FMAs. On the CPU the
+    plain version runs under
     both. ``row_chunk`` bounds the plain forward's memory on the CPU.
     """
     if dot_mode not in DOT_MODES:

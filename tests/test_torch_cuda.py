@@ -423,6 +423,147 @@ def test_backward_sweep_refuses_a_large_tree(cuda):
         kops.matvec_bwd_cuda(program, coef, x, x, v, v, need_l2=True, want_dx=False)
 
 
+
+# K4's full sweep (csrc/gram_matvec_bwd.cuh) on the symmetric sweep's four
+# families (compiled RBF and Matern, co2 without White interpreted): its
+# register-FMA pass (r = 1), its MMA passes (8, 16 and 72 columns, r = 130
+# in two), same set and ragged cross-set m, x in registers (d = 2, 4) and in
+# a loop (d = 9), dx on and off
+FULL_BWD_SHAPES = [(4096, None, 4), (4096, 2055, 2), (3001, 1507, 9), (3001, None, 2)]
+
+
+def _full_bwd_inputs(cuda, name, n, m, d, r, seed, spread=5.0):
+    """A family's program and fp32 coefficients, centred fp32 x1 (n, d) and
+    x2 (m, d; x1 itself for m = None) uniform in [-spread, spread], V and
+    ct on the card."""
+    rng = np.random.default_rng(seed)
+    kernel, params = SYM_BWD_FAMILIES[name]
+    program, coefs = kops.encode(kernel, _params(params, cuda))
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=cuda)
+    x = torch.tensor(rng.uniform(-spread, spread, (n, d)), dtype=torch.float32, device=cuda)
+    c = torch.mean(x, dim=0, keepdim=True)
+    x1c = (x - c).contiguous()
+    x2c = x1c if m is None else (torch.tensor(rng.uniform(-spread, spread, (m, d)),
+                                              dtype=torch.float32, device=cuda) - c).contiguous()
+    v = torch.tensor(rng.standard_normal((x2c.shape[0], r)), dtype=torch.float32, device=cuda)
+    ct = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float32, device=cuda)
+    return program, coef, x1c, x2c, v, ct, kops._k.needs_l2(kernel)
+
+
+def _full_bwd_gates(program, coef, x1c, x2c, v, ct, need_l2, want_dx, got, got_dx):
+    """The full sweep's result against the float64 plain VJP on the same
+    fp32 inputs: dL/dcoef within 1e-3 relative per coefficient (fp32 entry
+    terms, float64 sums), dL/dx within 2e-4 x max |plain| (the forward
+    kernels' bound)."""
+    want, want_dx_ = kops.gram_matvec_vjp_reference(
+        program, coef.double(), x1c.double(), x2c.double(), v.double(), ct.double(),
+        need_l2=need_l2, want_dx=want_dx)
+    assert got.dtype == torch.float32 and got.shape == coef.shape
+    assert float(torch.max(torch.abs(got.double() - want) / torch.abs(want))) <= 1e-3
+    if want_dx:
+        assert bool(torch.isfinite(got_dx).all())
+        assert float(torch.max(torch.abs(got_dx.double() - want_dx_))) <= \
+            2e-4 * float(torch.max(torch.abs(want_dx_)))
+    else:
+        assert got_dx is None
+
+
+@pytest.mark.parametrize("name", sorted(SYM_BWD_FAMILIES))
+@pytest.mark.parametrize("r", [1, 8, 9, 16, 65, 130])
+@pytest.mark.parametrize("n,m,d", FULL_BWD_SHAPES)
+@pytest.mark.parametrize("want_dx", [False, True])
+def test_full_backward_sweep_matches_plain_vjp_on_card(cuda, name, r, n, m, d, want_dx):
+    """The full backward sweep against the float64 plain VJP; one launch
+    counted."""
+    args = _full_bwd_inputs(cuda, name, n, m, d, r, n + r + d)
+    before = kops.launch_counts["gram_matvec_bwd"]
+    got, got_dx = kops.matvec_bwd_cuda(*args[:6], need_l2=args[6], want_dx=want_dx)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram_matvec_bwd"] == before + 1
+    _full_bwd_gates(*args, want_dx, got, got_dx)
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2_no_white"])
+@pytest.mark.parametrize("mma,width", [(False, w) for w in kops.BWD_FULL_FMA]
+                         + [(True, w) for w in kops.BWD_FULL_MMA])
+def test_full_backward_sweep_every_width_on_card(cuda, name, mma, width):
+    """Every compiled pass width of both products for G, reached by an r
+    that takes it (r = width - 1 on the MMA passes: ragged columns; 1, 2
+    and 3 on the FMA passes), cross-set with dx, against the float64 plain
+    VJP."""
+    r = {1: 1, 2: 2, 4: 3}[width] if not mma else width - 1
+    assert kops.bwd_full_passes(r) == (1, width, mma)
+    args = _full_bwd_inputs(cuda, name, 1500, 777, 4, r, width)
+    got, got_dx = kops.matvec_bwd_cuda(*args[:6], need_l2=args[6], want_dx=True)
+    _full_bwd_gates(*args, True, got, got_dx)
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2_no_white"])
+@pytest.mark.parametrize("r", [1, 65])
+@pytest.mark.parametrize("d", [200, 254])
+def test_full_backward_sweep_takes_a_wide_d_on_card(cuda, name, r, d):
+    """x1's rows and the dx sums stay out of shared memory at d > 4, so the
+    sweep takes d = 200 and 254 on the widest pass as on the narrowest,
+    cross-set with dx, against the float64 plain VJP. x spreads as
+    10 / sqrt(d), so squared distances are those of d = 4 at spread 5."""
+    args = _full_bwd_inputs(cuda, name, 700, 301, d, r, d + r, spread=10.0 / np.sqrt(d))
+    got, got_dx = kops.matvec_bwd_cuda(*args[:6], need_l2=args[6], want_dx=True)
+    _full_bwd_gates(*args, True, got, got_dx)
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2_no_white"])
+@pytest.mark.parametrize("r", [1, 9, 65])
+def test_full_backward_sweep_is_bitwise_reproducible_on_card(cuda, name, r):
+    """Partials per pass, split and row block, no atomics, a fixed order of
+    the sums: two runs give equal bits, dx included."""
+    args = _full_bwd_inputs(cuda, name, 4100, 3001, 4, r, 70 + r)
+    first = kops.matvec_bwd_cuda(*args[:6], need_l2=args[6], want_dx=True)
+    second = kops.matvec_bwd_cuda(*args[:6], need_l2=args[6], want_dx=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2_no_white"])
+@pytest.mark.parametrize("where", ["v", "ct", "coef"])
+@pytest.mark.parametrize("r", [1, 9])
+def test_full_backward_sweep_propagates_nan_on_card(cuda, name, where, r):
+    """A NaN in V, ct or a coefficient reaches the gradients where it
+    reaches the float64 plain VJP's: with one in V or ct every
+    coefficient's, with one in V every row of dx."""
+    program, coef, x1c, x2c, v, ct, need_l2 = _full_bwd_inputs(cuda, name, 700, 300, 3, r, 3)
+    if where == "v":
+        v[123, r - 1] = float("nan")
+    elif where == "ct":
+        ct[45, 0] = float("nan")
+    else:
+        coef[1] = float("nan")
+    got, got_dx = kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct, need_l2=need_l2,
+                                       want_dx=True)
+    want, want_dx = kops.gram_matvec_vjp_reference(
+        program, coef.double(), x1c.double(), x2c.double(), v.double(), ct.double(),
+        need_l2=need_l2, want_dx=True)
+    assert bool(torch.isnan(got).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isnan(got_dx), torch.isnan(want_dx))
+    if where != "coef":
+        assert bool(torch.isnan(got).all())
+    if where == "v":
+        assert bool(torch.isnan(got_dx).all())
+
+
+@pytest.mark.parametrize("name", sorted(SYM_BWD_FAMILIES))
+def test_full_backward_sweep_at_coincident_points_on_card(cuda, name):
+    """Coincident pairs (x2 holds copies of x1 rows; the same set's
+    diagonal) add nothing to dx, so Matern 1/2's 1/s weight stays finite:
+    both against the float64 plain VJP, which keeps the same rule."""
+    program, coef, x1c, x2c, v, ct, need_l2 = _full_bwd_inputs(cuda, name, 900, 400, 3, 9, 8)
+    x2c = torch.cat([x2c, x1c[::5]]).contiguous()
+    v = torch.cat([v, v[:x1c[::5].shape[0]]]).contiguous()
+    for pair in ((x1c, x2c, v), (x1c, x1c, ct)):
+        got, got_dx = kops.matvec_bwd_cuda(program, coef, *pair, ct, need_l2=need_l2,
+                                           want_dx=True)
+        _full_bwd_gates(program, coef, *pair, ct, need_l2, True, got, got_dx)
+
 GRAM_FAMILIES = {
     **BWD_FAMILIES,
     "matern32": (ops.Matern(nu=1.5), {"sigma": 0.8, "lengthscale": 1.1}),

@@ -16,7 +16,16 @@
   diagonal tiles) and its compiled leaves' prescaled sums, turned into
   dL/dcoef by ``bwd_sym_coef``, against the plain VJP (rtol 1e-12 and
   1e-10); its pass widths.
+- The full backward sweep (``csrc/gram_matvec_bwd.cuh``) in float64 on the
+  CPU: its passes over the columns of V and ct, its split of the x2 stages
+  and its 128-row blocks, a compiled leaf's S0, S1 and x-gradient sums on
+  prescaled x, the interpreter's dk/dcoef and G dk/dsq (a - b) sums, each
+  in the kernel's partial layout, turned into dL/dcoef and dL/dx1 by
+  ``bwd_full_finish``, against the plain VJP (rtol 1e-12); its pass widths
+  and its split.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -395,3 +404,159 @@ def test_sym_backward_wrapper_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kops.matvec_bwd_sym_cuda(program, coef, x, v, v, need_l2=False)
     assert kops.launch_counts == before
+
+
+# --------------------------------------------- the full backward sweep
+#
+# On the card the full sweep cuts V and ct into the passes of
+# bwd_full_passes, the x2 rows into the 64-row stages of bwd_full_split's
+# parts and the x1 rows into 128-row blocks; a compiled leaf sums
+# S0 = sum G f, S1 = sum G h and the dx terms q (a' - b') with q = G phi on
+# x prescaled as the kernel scales it, the interpreter dk/dcoef and
+# G dk/dsq (a - b); bwd_full_finish sums the partials and rescales them.
+# Here that decomposition, in float64, is held to the plain VJP; the card's
+# own runs are in test_torch_cuda.py.
+
+
+def _compiled_leaf_phi(route, sq):
+    """A compiled leaf's x-gradient weight phi on the prescaled squared
+    distance, in float64 (leaf_bwd_terms in csrc/gram_matvec_common.cuh):
+    RBF 2^-sq, Matern 1/2 e^-s / s (0 at s = 0), 3/2 e^-s, 5/2 (1 + s) e^-s."""
+    if route == kops.OP_RBF:
+        return torch.exp2(-sq)
+    s = torch.sqrt(sq)
+    e = torch.exp(-s)
+    if route == kops.OP_MATERN12:
+        return torch.where(s > 0, e / torch.where(s > 0, s, torch.ones_like(s)),
+                           torch.zeros_like(s))
+    return e if route == kops.OP_MATERN32 else (1.0 + s) * e
+
+
+def _full_bwd_partials(program, coef, x1c, x2c, v, ct, need_l2, want_dx, resident):
+    """The full sweep's partials in the kernel's layout, in float64: one
+    row of sums per pass, split and 128-row block (S0, S1 for a compiled
+    leaf; MAX_BWD_COEF coefficients for the interpreter, whose sums over a
+    pass and split go into the split's first block) and one x-gradient
+    partial per pass and split."""
+    n, d = x1c.shape
+    m, r = v.shape
+    route = kops.sym_route(program)
+    passes, width, _ = kops.bwd_full_passes(r)
+    splits = kops.bwd_full_split(n, m, resident)
+    stages = -(-m // kops.BWD_FULL_STAGE)
+    rows = -(-n // kops.BWD_FULL_ROWS)
+    block = torch.arange(n) // kops.BWD_FULL_ROWS
+    part = torch.zeros((passes * splits, rows, kops.BWD_SYM_LEAF_SUMS if route
+                        else kops.MAX_BWD_COEF), dtype=torch.float64)
+    pdx = torch.zeros((passes * splits, n, d), dtype=torch.float64) if want_dx else None
+    c1 = float(coef[1]) if route else 1.0
+    scale = np.sqrt(-c1 * kops.LOG2E) if route == kops.OP_RBF else c1
+    xa, xb = scale * x1c, scale * x2c
+    for p in range(passes):
+        cols = slice(p * width, min(r, (p + 1) * width))
+        for s in range(splits):
+            t0, t1 = stages * s // splits, stages * (s + 1) // splits
+            js = slice(t0 * kops.BWD_FULL_STAGE, min(m, t1 * kops.BWD_FULL_STAGE))
+            g = ct[:, cols] @ v[js, cols].T
+            diff = xa[:, None, :] - xb[None, js, :]
+            sq = torch.sum(diff * diff, dim=-1)
+            if route:
+                f, h = _compiled_leaf_terms(route, sq)
+                per_row = torch.stack([torch.sum(g * f, dim=1), torch.sum(g * h, dim=1)], 1)
+                part[p * splits + s].index_add_(0, block, per_row)
+                q = g * _compiled_leaf_phi(route, sq)
+            else:
+                dc, q = kops._program_vjp(program, coef, sq,
+                                          torch.sqrt(sq) if need_l2 else None, g)
+                part[p * splits + s, 0, :dc.numel()] = dc
+            if want_dx:
+                pdx[p * splits + s] = torch.sum(q[..., None] * diff, dim=1)
+    return part.reshape(-1, part.shape[-1]), pdx
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one thread for the test: these tests make many mid-sized
+    float64 ops, which oversubscribed threads under parallel test workers
+    slow many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_bwd_results(name, n, r, same):
+    """For a family, n, r and same or cross set (inputs from the rng
+    fixture's seed): the program and coefficients, the emulated partials
+    with dx, and the plain VJP's (dL/dcoef, dL/dx1), computed once for the
+    cases with and without dx."""
+    rng = np.random.default_rng(0)
+    kernel, program, coef, xc, v, ct = _sym_bwd_case(rng, name, n, r)
+    x2c = xc
+    if not same:
+        m = n // 2 + 7
+        x2c = torch.from_numpy(rng.uniform(-3, 3, (m, xc.shape[1]))) - xc.mean(0)
+        v = torch.from_numpy(rng.standard_normal((m, r)))
+    need_l2 = tk.needs_l2(kernel)
+    part, pdx = _full_bwd_partials(program, coef, xc, x2c, v, ct, need_l2, True, 132)
+    want = kops.gram_matvec_vjp_reference(program, coef, xc, x2c, v, ct, need_l2=need_l2,
+                                          want_dx=True, row_chunk=256)
+    return program, coef, part, pdx, want
+
+
+@pytest.mark.parametrize("name", SYM_BWD_FAMILIES)
+@pytest.mark.parametrize("n", [3001, 200])
+@pytest.mark.parametrize("r", [1, 9, 65])
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("want_dx", [False, True])
+def test_full_backward_decomposition_matches_plain_vjp(one_thread, name, n, r, same, want_dx):
+    """The full sweep's sum: per pass of columns, part of the x2 stages and
+    block of x1 rows, a compiled leaf's S0, S1 and x-gradient sums on
+    prescaled x, or the interpreter's dk/dcoef and G dk/dsq (a - b) sums,
+    rescaled by ``bwd_full_finish``, equal the plain VJP (rtol 1e-12 in
+    float64; dx also within 1e-12 x max |plain|, for its entries near 0).
+    A cross-set x2 has a ragged n // 2 + 7 rows."""
+    program, coef, part, pdx, (want, want_dx_) = _full_bwd_results(name, n, r, same)
+    got, got_dx = kops.bwd_full_finish(program, coef, part, pdx if want_dx else None)
+    assert got.dtype == coef.dtype and got.shape == coef.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
+    if want_dx:
+        np.testing.assert_allclose(got_dx.numpy(), want_dx_.numpy(), rtol=1e-12,
+                                   atol=1e-12 * float(torch.max(torch.abs(want_dx_))))
+    else:
+        assert got_dx is None
+
+
+@pytest.mark.parametrize("r,passes,width,mma", [
+    (1, 1, 1, False), (2, 1, 2, False), (3, 1, 4, False), (4, 1, 4, False), (5, 1, 8, True),
+    (8, 1, 8, True), (9, 1, 16, True), (16, 1, 16, True), (17, 1, 24, True),
+    (33, 1, 48, True), (65, 1, 72, True), (72, 1, 72, True), (73, 2, 48, True),
+    (130, 2, 72, True), (512, 8, 72, True)])
+def test_full_backward_passes_follow_r(r, passes, width, mma):
+    """The full backward sweep's passes: register FMAs up to
+    BWD_FULL_FMA[-1] columns, then the fewest 3xTF32 MMA passes of at most
+    72 columns, each the least compiled width that holds its share of r
+    (the 64-probe estimator's r = 65 in one pass of 72)."""
+    assert kops.bwd_full_passes(r) == (passes, width, mma)
+    assert passes * width >= r
+    assert width in (kops.BWD_FULL_MMA if mma else kops.BWD_FULL_FMA)
+    assert mma == (r > kops.BWD_FULL_FMA[-1])
+
+
+@pytest.mark.parametrize("n,m,resident,splits", [
+    (4096, 4096, 132, 4), (4096, 4096, 264, 8), (102400, 102400, 132, 10),
+    (102400, 51207, 132, 9), (3001, 1507, 132, 5), (200, 200, 132, 4), (64, 64, 132, 1),
+    (10 ** 6, 10 ** 6, 264, 5)])
+def test_full_backward_split_fills_the_card(n, m, resident, splits):
+    """The split of the x2 stages: at n = 4096 the 32 row blocks alone
+    would leave most of 132 SMs idle, so the stages are cut until the
+    blocks fill a wave; at n = 102400 the split evens out the last wave.
+    Every stage lies in exactly one part, and no part is empty."""
+    got = kops.bwd_full_split(n, m, resident)
+    assert got == splits
+    stages = -(-m // kops.BWD_FULL_STAGE)
+    assert 1 <= got <= min(stages, kops.BWD_FULL_MAX_SPLIT)
+    bounds = [stages * s // got for s in range(got + 1)]
+    assert bounds[0] == 0 and bounds[-1] == stages
+    assert all(a < b for a, b in zip(bounds[:-1], bounds[1:]))
