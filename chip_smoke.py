@@ -187,7 +187,28 @@ one JSON line:
     records by kind, collectives recorded on the card's tensors, no send
     or receive (one rank posts no ring transfer), both models verified,
     the training step's reduce-scatter recorded, equal bits with and
-    without the recorder.
+    without the recorder;
+20. wide_d (``default_rng([0, 21])``, after estimator_numpy): the sweeps in
+    their sliced layout, which a compiled leaf takes past the width it
+    holds in registers: at n = 16384, d = 512 (RBF(1, 2), x spread as
+    5 sqrt(4 / d), so squared distances are those of d = 4 at spread 5),
+    K2 at r = 65 and 512, K3 at r = 9, K4's symmetric sweep at r = 9 and
+    its full sweep at r = 65 (same set) and cross-set with dx at r = 9,
+    m = 8192, each against its plain version in fp32 (the forward sweeps
+    within 2e-4 x max |plain|; K4's dL/dcoef within 1e-3 per coefficient,
+    dx within 2e-4 x max |plain|), timed with CUDA events beside its bound
+    and the plain version's time; the same at d = 9 and 64 (m = 8192 for
+    the cross-set K4, each d its own generator ``default_rng([0, 21, d])``);
+    then the
+    paths: ``gp.posterior_cg`` at n = 16384, d = 512, m = 8 and 64 under
+    phase 5's residual gate (K3, then K2 launched), and at n = 4096 within
+    1e-2 of the exact float64 path; ``GPBinaryClassifier(device="cuda")
+    .fit(x, y).predict_proba(xs)`` at n = 40000, d = 100, m = 2048 (CG by
+    ``solver="auto"``; its prediction's 512-column K2 is sliced), converged,
+    and at n = 4096 the same by ``solver="cg"`` within phase 9's gates of
+    the float64 dense fit; one 8-probe ``opt.tune_large_scale`` step at
+    n = 16384, d = 512, finite, with one symmetric K4 sweep. The phase's
+    own seconds are in its last line.
 
 Then a line ``{"kernels": [...]}``: per kernel its source, the TPU kernel it
 replaces, its launches on the main paths, its error against its plain
@@ -201,8 +222,8 @@ computes the same function, that call's time.
 Last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; so does a machine without CUDA. Each phase draws its inputs from
 its own generator, ``np.random.default_rng([0, k])`` with k fixed for the
-phase (phases 13-19 take k = 13 to 19, train_large_probes 20), so a phase
-that draws more leaves the others' inputs as they were.
+phase (phases 13-19 take k = 13 to 19, train_large_probes 20, wide_d 21),
+so a phase that draws more leaves the others' inputs as they were.
 """
 
 from __future__ import annotations
@@ -349,6 +370,16 @@ DIST_TRAIN_STEPS = 5
 # the re-dispatched LML, one lost on the first attempt
 RING_K2_R = (1, M_CLS)
 MH_CANDIDATES, MH_LOST = 8, 3
+# the wide_d phase: the sweeps' sliced layout at n = 16384, d = 512 (K2 at
+# the serving width and the binary prediction's chunk, K3 and K4's
+# symmetric sweep at the training width, K4's full sweep at the 64-probe
+# width and cross-set with dx) and at d = 9 and 64, the paths at d = 512,
+# and the binary estimator at n = 40000, d = 100; the plain VJP there in
+# blocks of 256 rows
+N_WIDE, D_WIDE, M_WIDE_CROSS, D_WIDE_CLS = 16384, 512, 8192, 100
+D_WIDE_ROWS = (9, 64)
+WIDE_K2_R, WIDE_SYM_R, WIDE_CG_M = (65, 512), 9, (8, 64)
+WIDE_VJP_CHUNK = 256
 # the H100 SXM's published peaks: fp32 outside the tensor cores, dense TF32
 # on them, and HBM
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
@@ -415,8 +446,9 @@ def _kernel_name(mangled: str) -> str:
     if not m:
         return mangled
     end = m.end() + int(m.group(1))
-    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
-    targs = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
+    args = re.match(r"I((?:L[ib]n?\d+E)+)E", mangled[end:])
+    targs = [t.replace("n", "-") for t in re.findall(r"L[ib](n?\d+)E", args.group(1))] \
+        if args else []
     return mangled[m.end():end] + (f"<{','.join(targs)}>" if targs else "")
 
 
@@ -479,7 +511,18 @@ def phase_build() -> None:
          # K4's full sweep: registers and spills of every instantiation, and
          # the instruction mix of three
          k4_full_ptxas=[r for r in ptxas if r["kernel"].startswith("matvec_bwd_full_kernel")],
-         k4_full_sass_mix={k: v for k, v in mix.items() if k in K4_FULL_SASS})
+         k4_full_sass_mix={k: v for k, v in mix.items() if k in K4_FULL_SASS},
+         # the sliced layout's instantiations (D = X_SLICED = -1): the most
+         # registers and every one that spills
+         sliced_max_registers=max((r.get("registers", 0) for r in ptxas if _sliced(r)),
+                                  default=None),
+         sliced_spills=[r for r in ptxas if _sliced(r) and r["spill_stores"]])
+
+
+def _sliced(row: dict) -> bool:
+    """Whether a ptxas row is one of the sliced layout's instantiations."""
+    name = row["kernel"]
+    return ",-1," in name or ",-1>" in name
 
 
 def _case_kernels(device):
@@ -1685,6 +1728,184 @@ def _panel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(torch.max(torch.abs(got.double() - want)) / torch.max(torch.abs(want)))
 
 
+def _wide_x(gen: np.random.Generator, n: int, d: int, spread: float = 5.0) -> np.ndarray:
+    """x uniform in [-s, s]^d with s = spread sqrt(D / d): squared
+    distances as those of d = D at ``spread``."""
+    return gen.uniform(-spread, spread, (n, d)) * np.sqrt(D / d)
+
+
+def _wide_timed(run, plain, reps: int) -> tuple:
+    """The plain version once (CUDA events), then the kernel timed twice:
+    (row, kernel output, plain output)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = plain()
+    end.record()
+    torch.cuda.synchronize()
+    got = run()
+    ms_a, ms_b = _time_ms(run, reps), _time_ms(run, reps)
+    return ({"ms": min(ms_a, ms_b), "ms_runs": [ms_a, ms_b],
+             "plain_ms": start.elapsed_time(end)}, got, want)
+
+
+def _wide_kernels(device, gen: np.random.Generator, d: int) -> list:
+    """K2, K3 and both K4 sweeps at n = N_WIDE and d against their plain
+    versions in fp32, timed, with their bounds."""
+    n = N_WIDE
+    kernel, params = _case_kernels(device)["rbf"]
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=device)
+    x = torch.tensor(_wide_x(gen, n, d), dtype=torch.float32, device=device)
+    xc, _ = _centred(x, None)
+    rows = []
+    for name, r in [*(("gram_matvec_full", r) for r in WIDE_K2_R),
+                    ("gram_matvec_sym", WIDE_SYM_R)]:
+        v = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
+        run = lambda: _run(name, kernel, params, x, v)  # noqa: E731
+        plain = lambda: kops.gram_matvec_reference(kernel, params, x, None, v,  # noqa: E731
+                                                   same=True)
+        row, got, want = _wide_timed(run, plain, 2 if r > 128 else 5)
+        err, scale = _max_err(got, want)
+        if name == "gram_matvec_sym":
+            row.update(_bound(n * (n + 1) / 2 * _entry_flops(d) + n ** 2 * 2 * r,
+                              (n * d + 2 * n * r) * 4))
+        else:
+            row.update(_bound_k2(n, n, d, r))
+        rows.append({"kernel": name, "n": n, "d": d, "r": r, "max_abs_err": err,
+                     "max_abs_plain": scale, **row})
+    need_l2 = tk.needs_l2(kernel)
+    x2 = torch.tensor(_wide_x(gen, M_WIDE_CROSS, d), dtype=torch.float32, device=device)
+    x1c, x2c = _centred(x, x2)
+    for name, m, r, want_dx in (("gram_matvec_bwd_sym", None, WIDE_SYM_R, False),
+                                ("gram_matvec_bwd", None, 65, False),
+                                ("gram_matvec_bwd", M_WIDE_CROSS, 9, True)):
+        a, b = (xc, xc) if m is None else (x1c, x2c)
+        v = torch.tensor(gen.standard_normal((b.shape[0], r)), dtype=torch.float32,
+                         device=device)
+        ct = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
+        if name == "gram_matvec_bwd_sym":
+            run = lambda: (kops.matvec_bwd_sym_cuda(program, coef, a, v, ct,  # noqa: E731
+                                                    need_l2=need_l2), None)
+        else:
+            run = lambda: kops.matvec_bwd_cuda(program, coef, a, b, v, ct,  # noqa: E731
+                                               need_l2=need_l2, want_dx=want_dx)
+        plain = lambda: kops.gram_matvec_vjp_reference(  # noqa: E731
+            program, coef, a, b, v, ct, need_l2=need_l2, want_dx=want_dx,
+            row_chunk=WIDE_VJP_CHUNK)
+        row, got, want = _wide_timed(run, plain, 3)
+        first, second = run(), run()
+        coef_err = float(torch.max(torch.abs(got[0] - want[0]) / torch.abs(want[0])))
+        require(np.isfinite(coef_err) and coef_err <= BWD_COEF_RTOL,
+                f"{name} at d = {d}, r = {r}: dL/dcoef within {BWD_COEF_RTOL} of the plain "
+                f"VJP (got {coef_err:.3e})")
+        row.update(coef_rel_err=coef_err,
+                   max_abs_err=float(torch.max(torch.abs(got[0] - want[0]))),
+                   bitwise_equal=bool(torch.equal(first[0], second[0]) and (
+                       not want_dx or torch.equal(first[1], second[1]))))
+        require(row["bitwise_equal"], f"{name} twice at d = {d}, r = {r}: equal bits")
+        if want_dx:
+            err, scale = _max_err(got[1], want[1])
+            row.update(dx_rel_err=err / scale)
+        if name == "gram_matvec_bwd_sym":
+            row.update(_bound(n * (n + 1) / 2 * (_entry_flops(d) + 6 + 4 * r + 4),
+                              (n * d + 2 * n * r) * 4))
+        else:
+            row.update(_k4_full_bounds(n, b.shape[0], r, want_dx, d))
+        rows.append({"kernel": name, "n": n, "m": b.shape[0], "d": d, "r": r,
+                     "dx": want_dx, **row})
+        del want
+    return rows
+
+
+def phase_wide_d(device, gen: np.random.Generator) -> None:
+    """The sweeps and the paths at a wide d (module docstring, phase 20)."""
+    t0 = time.perf_counter()
+    rows = _wide_kernels(device, gen, D_WIDE)
+    for d in D_WIDE_ROWS:
+        rows += _wide_kernels(device, np.random.default_rng([0, 21, d]), d)
+    emit("wide_d_kernels", kernel="RBF(sigma=1, lengthscale=2)", plain="fp32 plain version",
+         rows=rows)
+
+    # posterior_cg at n = N_WIDE, d = D_WIDE
+    kernel, tol, noise = ops.RBF(), 1e-3, 1e-2
+    params = convert.params_from_numpy({"sigma": 1.0, "lengthscale": 2.0}, device=device,
+                                       dtype=torch.float32)
+    xw = torch.tensor(_wide_x(gen, N_WIDE, D_WIDE), dtype=torch.float32, device=device)
+    yw = torch.sin(0.9 * xw.sum(dim=1)) + 0.02 * torch.tensor(
+        gen.standard_normal(N_WIDE), dtype=torch.float32, device=device)
+    cg_runs = []
+    for m in WIDE_CG_M:
+        xs = xw[:m] + 0.1 * np.sqrt(D / D_WIDE)
+        post, seconds, counts = _timed(lambda: gp.posterior_cg(
+            kernel, params, xw, yw, xs, noise_variance=noise, tol=tol, max_iters=200,
+            preconditioner="nystrom", precond_rank=1024))
+        expect = "gram_matvec_sym" if kops.use_symmetric(N_WIDE, m + 1) else "gram_matvec_full"
+        rhs = torch.cat([yw[:, None], ops.gram(kernel, params, xw, xs)], dim=1).double()
+        stop = tol * float(torch.sqrt(torch.max(torch.sum(rhs * rhs, dim=0))))
+        cg_runs.append({"m": m, "iters": post.iters, "resnorm": float(post.resnorm),
+                        "stop": stop, "seconds": seconds, "launches": counts})
+        require(counts[expect] > 0, f"{expect} launched in the wide-d m = {m} run")
+        require(bool(torch.isfinite(post.mean).all()) and bool(torch.isfinite(post.var).all())
+                and post.mean.shape == (m,), "finite wide-d CG outputs")
+        require(float(post.resnorm) <= stop, f"wide-d CG converged at m = {m}")
+    x4, y4 = xw[:N_PARITY], yw[:N_PARITY]
+    xs = xw[:8] + 0.1 * np.sqrt(D / D_WIDE)
+    p64 = tk.tree_map_params(lambda a: a.double(), params)
+    dense = gp.posterior(kernel, p64, x4.double(), y4.double(), xs.double(),
+                         noise_variance=noise)
+    small = gp.posterior_cg(kernel, params, x4, y4, xs, noise_variance=noise, tol=1e-6,
+                            test_chunk=8, preconditioner="nystrom", precond_rank=512)
+    cg_parity = {"mean_abs_err": float(torch.max(torch.abs(small.mean.double() - dense.mean))),
+                 "var_abs_err": float(torch.max(torch.abs(small.var.double() - dense.var)))}
+    require(max(cg_parity.values()) < 1e-2, "wide-d CG vs float64 exact at n = 4096")
+
+    # the binary estimator at n = 40000, d = 100 from NumPy
+    n, d = N_NUMPY, D_WIDE_CLS
+    xb = gen.uniform(-3.0, 3.0, (n, d)) * np.sqrt(2.0 / d)
+    xt = gen.uniform(-3.0, 3.0, (M_CLS, d)) * np.sqrt(2.0 / d)
+    # two sums of d / 2 coordinates each, distributed about as x0, x1 of _cls_data
+    yb = np.where(np.sin(1.5 * xb[:, 0::2].sum(1)) - xb[:, 1::2].sum(1) > 0.0, 1.0, -1.0)
+    model, fit_seconds, fit_counts = _timed(
+        lambda: GPBinaryClassifier(ops.RBF(), device=device).fit(xb, yb))
+    prob, predict_seconds, predict_counts = _timed(lambda: model.predict_proba(xt))
+    require(model._solver == "cg" and model.state.converged
+            and fit_counts["gram_matvec_sym"] > 0, "the wide-d estimator fit went matrix-free "
+            "through K3 and converged")
+    require(predict_counts["gram_matvec_full"] > 0, "the wide-d prediction launched K2")
+    require(prob.shape == (M_CLS,) and bool(torch.isfinite(prob).all()),
+            "finite wide-d probabilities of the expected shape")
+    x32 = torch.tensor(xb[:N_CLS], dtype=torch.float32)
+    cg = GPBinaryClassifier(ops.RBF(), device=device).fit(
+        x32, torch.tensor(yb[:N_CLS], dtype=torch.float32), solver="cg")
+    ref = GPBinaryClassifier(ops.RBF(), device=device).fit(
+        x32.double(), torch.tensor(yb[:N_CLS]), solver="cholesky")
+    err, agree = _agreement(cg.predict_proba(torch.tensor(xt, dtype=torch.float32)),
+                            ref.predict_proba(torch.tensor(xt)))
+    require(cg.state.converged, "the wide-d CG fit at n = 4096 converged")
+    _gate("wide-d CG estimator vs float64 dense at n = 4096", err, agree)
+
+    # one 8-probe training step at n = N_WIDE, d = D_WIDE
+    p0 = convert.params_from_numpy({"sigma": 1.3, "lengthscale": 1.7}, device=device,
+                                   dtype=torch.float32)
+    res, train_seconds, train_counts = _timed(lambda: opt.tune_large_scale(
+        kernel, p0, xw, yw, noise_variance=noise, steps=1, num_probes=TRAIN_PROBES,
+        precond_rank=1024, cg_tol=1e-4, cg_max_iters=200))
+    trace = [float(t) for t in res.lml_trace]
+    require(all(np.isfinite(trace)) and all(np.isfinite(float(v)) for v in res.params.values()),
+            "a finite wide-d training step")
+    require(train_counts["gram_matvec_bwd_sym"] == 1, "one symmetric K4 sweep in the step")
+    emit("wide_d", seconds=time.perf_counter() - t0, n=N_WIDE, d=D_WIDE, posterior_cg=cg_runs,
+         cg_parity_n4096=cg_parity,
+         estimator={"n": n, "d": d, "m": M_CLS, "solver": model._solver,
+                    "newton_iters": model.state.iters, "fit_seconds": fit_seconds,
+                    "predict_seconds": predict_seconds, "fit_launches": fit_counts,
+                    "predict_launches": predict_counts, "n4096_max_abs_prob_err": err,
+                    "n4096_label_agreement": agree},
+         train_step={"seconds": train_seconds, "cg_iters": list(res.cg_iters),
+                     "surrogate": trace, "launches": train_counts})
+
+
 def phase_kernels_chol(device, gen: np.random.Generator) -> dict:
     """K6 against its plain version and both against float64 torch.linalg,
     on the chol mode's first diagonal panel and on X X^T / b + I panels; the
@@ -2640,6 +2861,7 @@ def main() -> int:
     phase_classify_dense(device, gen(10))
     phase_classify_large(device, gen(11))
     phase_estimator_numpy(device, gen(12))
+    phase_wide_d(device, gen(21))
     timings["chol_inv_panel"] = phase_kernels_chol(device, gen(13))
     phase_chol_blocked(device)
     with tempfile.TemporaryDirectory() as tmp:

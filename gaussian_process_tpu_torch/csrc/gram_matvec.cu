@@ -14,9 +14,12 @@
 
 namespace {
 
-// The sweep's x width: 4 for a compiled leaf at d <= 4, else 0 (a
-// loop over d, x2 staged at width d).
-int full_x_width(int leaf, int d) { return leaf != 0 && d <= 4 ? 4 : 0; }
+// The sweep's x width: X_SLICED for the sliced layout; else 4 for a
+// compiled leaf at d <= 4 (0 above: no such instantiation), 0 (a loop over
+// d, x2 staged at width d) for the interpreter.
+int full_x_width(int leaf, int d, int sliced) {
+  return sliced ? X_SLICED : leaf != 0 && d <= 4 ? 4 : 0;
+}
 
 // The staging pass of the sweep: x2s (m_pad x dx) = x2 times the
 // compiled leaf's x scale, zero past m and past d; vf = V split into TF32
@@ -67,38 +70,41 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" {
 
-// The width of the sweep's staged x2 (the caller's x2s scratch is
-// m_pad rows of it) on a route (leaf as in gm_matvec_full_tc) at d.
-int gm_full_tc_x_width(int leaf, int d) {
-  const int D = full_x_width(leaf, d);
-  return D > 0 ? D : d;
-}
-
-// Shared-memory bytes one block of the sweep needs for nt tiles of
-// 8 columns a pass, at d on a route (leaf as in gm_matvec_full_tc).
-size_t gm_full_tc_smem_bytes(int nt, int d, int leaf) {
-  const int D = full_x_width(leaf, d), dx = D > 0 ? D : d;
-  return sizeof(float) * (D > 0 ? full_smem_floats<4>(d, dx, nt) : full_smem_floats<0>(d, dx, nt));
+// The width of the sweep's staged x2 (the caller's x2s scratch is m_pad
+// rows of it, and in the sliced layout its x1s scratch n rounded up to 128
+// rows of it) on a route (leaf as in gm_matvec_full_tc) at d, in the sliced
+// layout (sliced = 1) or not.
+int gm_full_tc_x_width(int leaf, int d, int sliced) {
+  const int D = full_x_width(leaf, d, sliced);
+  return D > 0 ? D : D == 0 ? d : slice_width(d);
 }
 
 // out (n x r) = K(x1, x2) @ v by K2 under both dot_modes; x1 (n x d), x2 (m x d),
 // v (m x r), all contiguous fp32 on the device. leaf: 0 for the postfix
 // interpreter, else the opcode of the tree's one leaf (RBF or a Matern);
-// passes of nt tiles of 8 columns (kernel_ops.full_passes); both chosen by
-// the wrapper. Scratch from the caller: x2s (m_pad x gm_full_tc_x_width
-// floats) and vf (passes x m_pad x 16 nt floats), m_pad = m rounded up to a
-// multiple of 64. Two launches: the staging pass, then the sweep. Returns
-// the first launch error, else cudaGetLastError().
+// passes of nt tiles of 8 columns (kernel_ops.full_passes); sliced: 1 for
+// the sliced layout (any d), 0 for x at full width (a compiled leaf at
+// d <= 4, the interpreter); all chosen by the wrapper. Scratch from the
+// caller: x2s (m_pad x gm_full_tc_x_width floats), vf (passes x m_pad x
+// 16 nt floats), m_pad = m rounded up to a multiple of 64, and when sliced
+// x1s (n rounded up to 128 rows x gm_full_tc_x_width floats), else null.
+// Two launches, three sliced: x1's prescaled copy, the staging pass, then
+// the sweep. Returns the first launch error, else cudaGetLastError().
 int gm_matvec_full_tc(const float* x1, const float* x2, const float* v, float* out,
-                      float* x2s, float* vf, const int* prog, int n_instr, const float* coef,
-                      int n_coef, int leaf, int passes, int nt, int n, int m, int m_pad, int d,
-                      int r, int need_l2, void* stream) {
-  const int D = full_x_width(leaf, d), dx = D > 0 ? D : d;
+                      float* x1s, float* x2s, float* vf, const int* prog, int n_instr,
+                      const float* coef, int n_coef, int leaf, int passes, int nt, int n, int m,
+                      int m_pad, int d, int r, int need_l2, int sliced, void* stream) {
+  const int D = full_x_width(leaf, d, sliced), dx = gm_full_tc_x_width(leaf, d, sliced);
   if (bad_program(n_instr, n_coef) || n < 1 || m < 1 || d < 1 || r < 1 || passes < 1 ||
       nt < 1 || nt > 16 || passes * nt * 8 < r || m_pad < m || m_pad % FULL_M_ALIGN != 0 ||
-      (leaf != 0 && n_instr != 1))
+      (leaf != 0 && n_instr != 1) || (sliced != 0) != (x1s != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sliced) {
+    const cudaError_t e = prescale_rows(x1, prog, coef, leaf, x1s, n,
+                                        (n + FULL_ROWS - 1) / FULL_ROWS * FULL_ROWS, d, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   const size_t quads = (size_t)passes * (m_pad / 8) * nt * 32;
   const size_t want = (quads + THREADS - 1) / THREADS;
   const unsigned blocks = (unsigned)(want < 132 * 8 ? want : 132 * 8);
@@ -107,8 +113,9 @@ int gm_matvec_full_tc(const float* x1, const float* x2, const float* v, float* o
                                                 dx, r, nt, passes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const FullArgs a{x1, x2s, vf, out, prog, n_instr, coef, n_coef, n, m_pad, d, dx, r, nt,
-                   need_l2};
+  const FullArgs a{sliced ? x1s : x1, x2s, vf, out, prog, n_instr, coef, n_coef, n, m_pad, d,
+                   dx, r, nt, need_l2};
+  if (sliced) return (int)gm_full_launch_sliced(a, leaf, passes, st);
   switch (leaf) {
     case 0:
       err = full_launch_d<0, 0>(a, passes, st);

@@ -7,9 +7,12 @@
 
 namespace {
 
-// x's width in registers: 4 for a compiled leaf at d <= 4, else 0 (a loop
-// over d, x2 staged at width d).
-int bf_x_width(int leaf, int d) { return leaf != 0 && d <= 4 ? 4 : 0; }
+// x's width in registers: X_SLICED for the sliced layout; else 4 for a
+// compiled leaf at d <= 4 (0 above: no such instantiation), 0 (a loop over
+// d, x2 staged at width d) for the interpreter.
+int bf_x_width(int leaf, int d, int sliced) {
+  return sliced ? X_SLICED : leaf != 0 && d <= 4 ? 4 : 0;
+}
 
 bool bf_width_ok(int mma, int width) {
   if (mma) return width == 8 || width == 16 || width == 24 || width == 32 || width == 48 ||
@@ -18,6 +21,13 @@ bool bf_width_ok(int mma, int width) {
 }
 
 BwdFullFn bf_route(const BwdFullPlan& p) {
+  if (p.D == X_SLICED) {
+    switch (p.leaf) {
+      case 0: return gm_bwd_full_pick_sliced(p);
+      case OP_RBF: return gm_bwd_full_pick_sliced_rbf(p);
+      default: return gm_bwd_full_pick_sliced_matern(p);
+    }
+  }
   switch (p.leaf) {
     case 0: return bf_pick<0>(p);
     case OP_RBF: return gm_bwd_full_pick_rbf(p);
@@ -87,24 +97,19 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" {
 
 // The width of the sweep's staged x2 (the caller's x2s scratch is m_pad rows
-// of it) on a route (leaf: 0 for the interpreter, else the compiled leaf's
-// opcode) at d.
-int gm_bwd_full_x_width(int leaf, int d) {
-  const int D = bf_x_width(leaf, d);
-  return D > 0 ? D : d;
-}
-
-// Shared-memory bytes one block of the sweep needs (the wrapper checks them
-// against the card's limit before launching).
-size_t gm_bwd_full_smem_bytes(int leaf, int mma, int width, int d) {
-  return bf_smem_bytes(mma != 0, width, gm_bwd_full_x_width(leaf, d));
+// of it, and in the sliced layout its x1s scratch is n rounded up to 128
+// rows of it) on a route (leaf: 0 for the interpreter, else the compiled
+// leaf's opcode) at d, in the sliced layout (sliced = 1) or not.
+int gm_bwd_full_x_width(int leaf, int d, int sliced) {
+  const int D = bf_x_width(leaf, d, sliced);
+  return D > 0 ? D : D == 0 ? d : slice_width(d);
 }
 
 // The blocks of a plan's instantiation that the card holds at once, or a
 // negative cudaError_t. The wrapper splits the x2 stages by it
 // (kernel_ops.bwd_full_split).
-int gm_bwd_full_resident(int leaf, int mma, int width, int d, int want_dx) {
-  const BwdFullPlan p{leaf, mma, width, bf_x_width(leaf, d), want_dx};
+int gm_bwd_full_resident(int leaf, int mma, int width, int d, int want_dx, int sliced) {
+  const BwdFullPlan p{leaf, mma, width, bf_x_width(leaf, d, sliced), want_dx};
   const BwdFullFn fn = bf_width_ok(mma, width) ? bf_route(p) : nullptr;
   if (fn == nullptr || d < 1) return -(int)cudaErrorInvalidValue;
   BwdFullArgs a{};
@@ -124,25 +129,34 @@ int gm_bwd_full_resident(int leaf, int mma, int width, int d, int want_dx) {
 // gram_bwd_dx_scale). mma and width: the pass (kernel_ops.bwd_full_passes);
 // splits: the x2 stages' split (kernel_ops.bwd_full_split), at most
 // m_pad / 64. x1 (n x d), x2 (m x d), v (m x r), ct (n x r): contiguous fp32
-// on the device. Scratch from the caller: x2s (m_pad x gm_bwd_full_x_width
-// floats) and vs (passes x m_pad x width floats, twice that with mma), m_pad
-// = m rounded up to a multiple of 64. Two launches: the staging pass, then
-// the sweep. Returns the first launch error, else cudaGetLastError().
+// on the device. sliced: 1 for the sliced layout (any d), 0 for x2 staged
+// at full width (a compiled leaf at d <= 4, the interpreter). Scratch from the caller: x2s (m_pad x gm_bwd_full_x_width
+// floats), vs (passes x m_pad x width floats, twice that with mma), m_pad
+// = m rounded up to a multiple of 64, and with sliced x1s (n rounded up to
+// 128 rows x gm_bwd_full_x_width floats), else null. Two launches, three
+// when sliced: the staging pass (and x1's prescaled copy), then the sweep.
+// Returns the first launch error, else cudaGetLastError().
 int gm_matvec_bwd(const float* x1, const float* x2, const float* v, const float* ct,
-                  float* x2s, float* vs, double* part, float* pdx, const int* prog, int n_instr,
-                  const float* coef, int n_coef, int leaf, int mma, int width, int passes,
-                  int splits, int n, int m, int m_pad, int d, int r, int need_l2, int want_dx,
-                  void* stream) {
+                  float* x1s, float* x2s, float* vs, double* part, float* pdx, const int* prog,
+                  int n_instr, const float* coef, int n_coef, int leaf, int mma, int width,
+                  int passes, int splits, int n, int m, int m_pad, int d, int r, int need_l2,
+                  int want_dx, int sliced, void* stream) {
   if (n_instr < 1 || n_instr > MAX_BWD_INSTR || n_coef < 1 || n_coef > MAX_BWD_COEF ||
       n < 1 || m < 1 || d < 1 || r < 1 || passes < 1 || passes > 65535 || splits < 1 ||
       m_pad < m || m_pad % BF_STAGE != 0 || splits > m_pad / BF_STAGE ||
       (long long)passes * width < r || !bf_width_ok(mma, width) ||
-      (leaf != 0 && n_instr != 1) || (want_dx != 0) != (pdx != nullptr))
+      (leaf != 0 && n_instr != 1) || (want_dx != 0) != (pdx != nullptr) ||
+      (sliced != 0) != (x1s != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int D = bf_x_width(leaf, d), dx = D > 0 ? D : d;
+  const int D = bf_x_width(leaf, d, sliced), dx = gm_bwd_full_x_width(leaf, d, sliced);
   const BwdFullFn fn = bf_route(BwdFullPlan{leaf, mma, width, D, want_dx});
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sliced) {
+    const cudaError_t e = prescale_rows(x1, prog, coef, leaf, x1s, n,
+                                        (n + BF_ROWS - 1) / BF_ROWS * BF_ROWS, d, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   const size_t items = (size_t)passes * m_pad * width * (mma ? 2 : 1) / (mma ? 4 : 1);
   const size_t want = (items + THREADS - 1) / THREADS;
   const unsigned blocks = (unsigned)(want < 132 * 8 ? (want > 0 ? want : 1) : 132 * 8);
@@ -150,7 +164,7 @@ int gm_matvec_bwd(const float* x1, const float* x2, const float* v, const float*
                                                     d, dx, r, mma, width, passes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const BwdFullArgs a{x1, x2s, vs, ct, part, pdx, prog, n_instr, coef, n_coef,
+  const BwdFullArgs a{sliced ? x1s : x1, x2s, vs, ct, part, pdx, prog, n_instr, coef, n_coef,
                       n, m_pad, d, dx, r, need_l2};
   const dim3 grid((unsigned)((n + BF_ROWS - 1) / BF_ROWS), (unsigned)splits, (unsigned)passes);
   return (int)fn(a, grid, st, nullptr);

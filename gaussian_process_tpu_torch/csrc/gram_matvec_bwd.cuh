@@ -58,9 +58,9 @@
 //     (LEAF = its opcode) on x prescaled by leaf_x_scale, summing only
 //     S0 = sum G f and S1 = sum G h (leaf_bwd_terms), which the wrapper
 //     rescales (kernel_ops.bwd_sym_coef), as K4's symmetric sweep and K5's
-//     backward do; x at width D = 4 in registers for d <= 4, else read in
-//     a loop over d (D = 0). Every other tree takes LEAF = 0,
-//     tree_grad's interpreter, with D = 0.
+//     backward do; x at width D = 4 in registers for d <= 4. Every other
+//     tree takes LEAF = 0, tree_grad's interpreter, with d read in a loop
+//     (D = 0) up to d = 8.
 //   * dx in registers, in the direct form. With D = 4 each thread adds
 //     q (a'_i - b'_j)_k into 2 x 4 accumulators, q = G phi (compiled) or
 //     G dk/dsq (interpreted), reusing the differences it formed for sq; at
@@ -76,8 +76,19 @@
 //   * Any d. With D = 0 the x1 rows are read from global memory (the
 //     read-only path; a block's rows stay in L1 at the usual d) and the dx
 //     sums live in the partial, so shared memory holds only the x2 and V
-//     stages and grows by 2 x 64 d floats with d: d up to 307 on the widest
-//     pass, 447 on the FMA passes.
+//     stages. Past the widths above the wrapper takes the sliced layout
+//     (D = X_SLICED, gram_matvec_slice.cuh), which measured 1.7x faster
+//     than D = 0 at d = 9 (r = 65; 1.35x with dx) and 11-14x at d = 64
+//     (PERF.md): x1 prescaled into a
+//     padded copy, and each step stages 32 coordinates of the block's x1
+//     rows and of the stage's x2 rows (cp.async, double-buffered; V with a
+//     stage's first step). A thread sums the squared distances of its 32
+//     C-fragment entries of the stage in registers across the slices; then
+//     G and the entries' terms, as D = 0 takes them, which turns each sum
+//     into the entry's dx weight q. With dx a second walk over the stage's
+//     slices adds q (a_k - b_k) into the row's slot, slice by slice: the
+//     four lanes of a row sum each coordinate's terms of the stage by a
+//     butterfly and the lane that owns the coordinate adds them in.
 //   * A grid that fills the card. A block owns 128 rows of x1 (8 warps x
 //     16) and walks its share of the x2 stages (64 rows, double-buffered
 //     with cp.async, one block barrier a stage). Where there are too few
@@ -97,11 +108,11 @@
 
 #pragma once
 
-#include "gram_matvec_common.cuh"
+#include "gram_matvec_slice.cuh"
 
 // What one launch of the sweep reads and writes (device pointers).
 struct BwdFullArgs {
-  const float* x1;   // n x d, centred
+  const float* x1;   // n x d, centred; sliced: prescaled, 128-row blocks x dx, zero past d
   const float* x2s;  // m_pad x dx: x2 prescaled, zero past m and past d
   const float* vs;   // passes x m_pad x (2 W or W): V staged (B fragments, or rows)
   const float* ct;   // n x r
@@ -119,7 +130,7 @@ struct BwdFullPlan {
   int leaf;    // 0: the interpreter, else the compiled leaf's opcode
   int mma;     // 1: G by 3xTF32 MMAs, 0: by FMAs
   int width;   // V columns a pass
-  int D;       // x width in registers (4), or 0: a loop over d
+  int D;       // x width in registers (4, compiled), 0 (a loop over d, interpreted), or X_SLICED
   int want_dx;
 };
 
@@ -149,12 +160,22 @@ __host__ __device__ constexpr int bf_vstage(bool mma, int w) {
   return BF_STAGE * w * (mma ? 2 : 1);
 }
 
-// Shared memory of one block, in bytes, for x2 staged at width dx: the
-// block's reduction (as doubles), two stages of x2 and V, the program and
-// its operand table.
-__host__ __device__ inline size_t bf_smem_bytes(bool mma, int w, int dx) {
+// Sliced layout (D = X_SLICED): a step's slices of the block's x1 rows and
+// the stage's x2 rows.
+constexpr int BF_SLICE_BUF = (BF_ROWS + BF_STAGE) * X_SLICE_LD;
+
+// Floats of x a buffer holds: an x2 stage at width dx, or a step's slices.
+template <int D>
+__host__ __device__ inline int bf_x_floats(int dx) {
+  return D == X_SLICED ? BF_SLICE_BUF : BF_STAGE * dx;
+}
+
+// Shared memory of one block, in bytes, for xf floats of x a buffer: the
+// block's reduction (as doubles), two buffers of x and two stages of V, the
+// program and its operand table.
+__host__ __device__ inline size_t bf_smem_bytes(bool mma, int w, int xf) {
   return sizeof(double) * BF_WARPS * MAX_BWD_COEF +
-         sizeof(float) * ((size_t)2 * (BF_STAGE * dx + bf_vstage(mma, w)) + MAX_BWD_COEF +
+         sizeof(float) * ((size_t)2 * (xf + bf_vstage(mma, w)) + MAX_BWD_COEF +
                           4 * MAX_BWD_INSTR);
 }
 
@@ -178,7 +199,7 @@ __global__ void __launch_bounds__(THREADS, bf_min_blocks<MMA, W, LEAF>())
   extern __shared__ __align__(16) float smem[];
   double* s_red = reinterpret_cast<double*>(smem);           // warps x MAX_BWD_COEF
   float* s_stage = smem + 2 * BF_WARPS * MAX_BWD_COEF;         // 2 x (x2 stage, V stage)
-  const int stage_f = BF_STAGE * dx + VST;
+  const int stage_f = bf_x_floats<D>(dx) + VST;
   float* s_coef = s_stage + 2 * stage_f;                       // MAX_BWD_COEF
   int* s_prog = reinterpret_cast<int*>(s_coef + MAX_BWD_COEF);  // 2 MAX_BWD_INSTR
   int* s_kid = s_prog + 2 * MAX_BWD_INSTR;                      // 2 MAX_BWD_INSTR
@@ -342,79 +363,257 @@ __global__ void __launch_bounds__(THREADS, bf_min_blocks<MMA, W, LEAF>())
     __syncthreads();  // the program is in place
     if (threadIdx.x == 0) program_kids(s_prog, a.n_instr, s_kid);
   }
-  stage(t0, 0);
-  for (int t = t0; t < t1; ++t) {
-    const int buf = (t - t0) & 1;
-    cp_async_wait_all();
-    __syncthreads();  // stage t is in place; every warp is done with stage t - 1
-    if (t + 1 < t1) stage(t + 1, buf ^ 1);
-    const float* sx = s_stage + buf * stage_f;
-    const float* sv = sx + BF_STAGE * dx;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) tsum[s] = 0.0f;
-
-    if constexpr (MMA) {
-      const float4* vt = reinterpret_cast<const float4*>(sv);
-#pragma unroll 1
-      for (int jg = 0; jg < BF_TILES; jg += BF_NJ) {
-        float big[BF_NJ][4], sml[BF_NJ][4];
-#pragma unroll
-        for (int u = 0; u < BF_NJ; ++u)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) big[u][e] = sml[u][e] = 0.0f;
-#pragma unroll
-        for (int s = 0; s < KS; ++s)
-#pragma unroll
-          for (int u = 0; u < BF_NJ; ++u) {
-            const float4 b = vt[((jg + u) * KS + s) * 32 + lane];
-            const unsigned bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
-            const unsigned bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
-            mma_tf32(sml[u], alo[s], bh0, bh1);
-            mma_tf32(sml[u], ahi[s], bl0, bl1);
-            mma_tf32(big[u], ahi[s], bh0, bh1);
-          }
-#pragma unroll
-        for (int u = 0; u < BF_NJ; ++u) {
-          float g[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) g[e] = big[u][e] + sml[u][e];
-          entries(sx, jg + u, g);
-        }
+  if constexpr (D == X_SLICED) {
+    // A stage is nsl steps of slices, then with dx nsl more (the second
+    // walk). Two buffers of slices, then two of V (a stage's first step
+    // brings V), in the stage buffers' place; x1 is the prescaled copy.
+    const int nsl = dx / X_SLICE, per = (DX ? 2 : 1) * nsl, steps = (t1 - t0) * per;
+    float* s_vb = s_stage + 2 * BF_SLICE_BUF;
+    auto issue = [&](int u) {
+      const int t = t0 + u / per, c = (u % per) % nsl;
+      slice_rows<BF_ROWS, BF_STAGE>(s_stage + (u & 1) * BF_SLICE_BUF, a.x1, row0, a.x2s,
+                                    t * BF_STAGE, dx, c * X_SLICE);
+      if (u % per == 0) {
+        const float4* gv = reinterpret_cast<const float4*>(vsrc + (size_t)t * VST);
+        float4* sv = reinterpret_cast<float4*>(s_vb + ((t - t0) & 1) * VST);
+        for (int e = threadIdx.x; e < VST / 4; e += THREADS) cp_async16(sv + e, gv + e);
       }
-    } else {
-#pragma unroll 2
-      for (int jt = 0; jt < BF_TILES; ++jt) {
-        // the rows of V of the thread's two columns, 2 W floats in a row
-        const float* vp = sv + (8 * jt + 2 * tig) * W;
-        float vv[2 * W];
-        if constexpr (W == 1) {
-          const float2 t2 = *reinterpret_cast<const float2*>(vp);
-          vv[0] = t2.x;
-          vv[1] = t2.y;
-        } else {
+      cp_async_commit();
+    };
+    // the squared distances of the thread's entries of the stage (tile jt,
+    // C-fragment order e: row h = e / 2, column 2 tig + e % 2), then their
+    // dx weights q
+    float sq[BF_TILES][4];
+    issue(0);
+    for (int u = 0; u < steps; ++u) {
+      const int t = t0 + u / per, w = u % per, c = w % nsl;
+      cp_async_wait_all();
+      __syncthreads();  // step u is in place; every warp is done with step u - 1
+      if (u + 1 < steps) issue(u + 1);
+      const float* xa = s_stage + (u & 1) * BF_SLICE_BUF;  // the block's x1 rows
+      const float* xb = xa + BF_ROWS * X_SLICE_LD;          // the stage's x2 rows
+      if (w >= nsl) {
+        if constexpr (DX) {
+          // dx: per row h and coordinate of the slice, the stage's terms
+          // q (a - b) by the four lanes, then the lane that owns it
+#pragma unroll 1
+          for (int k = 0; k < X_SLICE; k += 4) {
+            float4 a4[2], p4[2];
 #pragma unroll
-          for (int c = 0; c < 2 * W; c += 4) {
-            const float4 t4 = *reinterpret_cast<const float4*>(vp + c);
-            vv[c] = t4.x;
-            vv[c + 1] = t4.y;
-            vv[c + 2] = t4.z;
-            vv[c + 3] = t4.w;
+            for (int h = 0; h < 2; ++h) {
+              a4[h] = *reinterpret_cast<const float4*>(xa + (wrow + 8 * h) * X_SLICE_LD + k);
+              p4[h] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            }
+#pragma unroll
+            for (int jt = 0; jt < BF_TILES; ++jt)
+#pragma unroll
+              for (int cc = 0; cc < 2; ++cc) {
+                const float4 b4 = *reinterpret_cast<const float4*>(
+                    xb + (8 * jt + 2 * tig + cc) * X_SLICE_LD + k);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const float q = sq[jt][2 * h + cc];
+                  p4[h].x = fmaf(q, a4[h].x - b4.x, p4[h].x);
+                  p4[h].y = fmaf(q, a4[h].y - b4.y, p4[h].y);
+                  p4[h].z = fmaf(q, a4[h].z - b4.z, p4[h].z);
+                  p4[h].w = fmaf(q, a4[h].w - b4.w, p4[h].w);
+                }
+              }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float pv[4] = {p4[h].x, p4[h].y, p4[h].z, p4[h].w};
+#pragma unroll
+              for (int o = 0; o < 4; ++o) {
+                pv[o] += __shfl_xor_sync(0xffffffffu, pv[o], 1);
+                pv[o] += __shfl_xor_sync(0xffffffffu, pv[o], 2);
+              }
+              const int kk = c * X_SLICE + k + tig;  // the coordinate this lane owns
+              const float mine = tig == 0 ? pv[0] : tig == 1 ? pv[1] : tig == 2 ? pv[2] : pv[3];
+              if (dxg[h] != nullptr && kk < d) dxg[h][kk] += mine;
+            }
           }
         }
-        float g[4];
+        continue;
+      }
+      if (c == 0) {
+#pragma unroll
+        for (int jt = 0; jt < BF_TILES; ++jt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sq[jt][e] = 0.0f;
+      }
+#pragma unroll 2
+      for (int k = 0; k < X_SLICE; k += 4) {
+        float4 a4[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          a4[h] = *reinterpret_cast<const float4*>(xa + (wrow + 8 * h) * X_SLICE_LD + k);
+#pragma unroll
+        for (int jt = 0; jt < BF_TILES; ++jt)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const float4 b4 = *reinterpret_cast<const float4*>(
+                xb + (8 * jt + 2 * tig + cc) * X_SLICE_LD + k);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) sq_add4(sq[jt][2 * h + cc], a4[h], b4);
+          }
+      }
+      if (c + 1 < nsl) continue;
+
+      // G and the entries' terms, as D = 0 takes them; q replaces sq
+      const float* sv = s_vb + ((t - t0) & 1) * VST;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) tsum[s] = 0.0f;
+      auto weigh = [&](int jt, const float (&g)[4]) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1, cc = e & 1;
-          float s = 0.0f;
-#pragma unroll
-          for (int c = 0; c < W; ++c) s = fmaf(cr[h][c], vv[cc * W + c], s);
-          g[e] = s;
+          const float sqe = sq[jt][e];
+          float q;
+          if constexpr (LEAF == 0) {
+            q = tree_grad(s_prog, s_kid, s_coef, a.n_instr, sqe, a.need_l2 ? sqrtf(sqe) : 0.0f,
+                          g[e], tsum);
+          } else {
+            leaf_bwd_terms<LEAF, DX>(sqe, g[e], tsum[0], tsum[1], q);
+          }
+          if constexpr (DX) sq[jt][e] = q;
         }
-        entries(sx, jt, g);
-      }
-    }
+      };
+      if constexpr (MMA) {
+        const float4* vt = reinterpret_cast<const float4*>(sv);
 #pragma unroll
-    for (int s = 0; s < NS; ++s) acc[s] += (double)tsum[s];
+        for (int jg = 0; jg < BF_TILES; jg += BF_NJ) {
+          float big[BF_NJ][4], sml[BF_NJ][4];
+#pragma unroll
+          for (int u2 = 0; u2 < BF_NJ; ++u2)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) big[u2][e] = sml[u2][e] = 0.0f;
+#pragma unroll
+          for (int s = 0; s < KS; ++s)
+#pragma unroll
+            for (int u2 = 0; u2 < BF_NJ; ++u2) {
+              const float4 b = vt[((jg + u2) * KS + s) * 32 + lane];
+              const unsigned bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+              const unsigned bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+              mma_tf32(sml[u2], alo[s], bh0, bh1);
+              mma_tf32(sml[u2], ahi[s], bl0, bl1);
+              mma_tf32(big[u2], ahi[s], bh0, bh1);
+            }
+#pragma unroll
+          for (int u2 = 0; u2 < BF_NJ; ++u2) {
+            float g[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) g[e] = big[u2][e] + sml[u2][e];
+            weigh(jg + u2, g);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int jt = 0; jt < BF_TILES; ++jt) {
+          const float* vp = sv + (8 * jt + 2 * tig) * W;
+          float vv[2 * W];
+          if constexpr (W == 1) {
+            const float2 t2 = *reinterpret_cast<const float2*>(vp);
+            vv[0] = t2.x;
+            vv[1] = t2.y;
+          } else {
+#pragma unroll
+            for (int cw = 0; cw < 2 * W; cw += 4) {
+              const float4 t4 = *reinterpret_cast<const float4*>(vp + cw);
+              vv[cw] = t4.x;
+              vv[cw + 1] = t4.y;
+              vv[cw + 2] = t4.z;
+              vv[cw + 3] = t4.w;
+            }
+          }
+          float g[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, cc = e & 1;
+            float sg = 0.0f;
+#pragma unroll
+            for (int cw = 0; cw < W; ++cw) sg = fmaf(cr[h][cw], vv[cc * W + cw], sg);
+            g[e] = sg;
+          }
+          weigh(jt, g);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) acc[s] += (double)tsum[s];
+    }
+  } else {
+    stage(t0, 0);
+    for (int t = t0; t < t1; ++t) {
+      const int buf = (t - t0) & 1;
+      cp_async_wait_all();
+      __syncthreads();  // stage t is in place; every warp is done with stage t - 1
+      if (t + 1 < t1) stage(t + 1, buf ^ 1);
+      const float* sx = s_stage + buf * stage_f;
+      const float* sv = sx + BF_STAGE * dx;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) tsum[s] = 0.0f;
+
+      if constexpr (MMA) {
+        const float4* vt = reinterpret_cast<const float4*>(sv);
+#pragma unroll 1
+        for (int jg = 0; jg < BF_TILES; jg += BF_NJ) {
+          float big[BF_NJ][4], sml[BF_NJ][4];
+#pragma unroll
+          for (int u = 0; u < BF_NJ; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) big[u][e] = sml[u][e] = 0.0f;
+#pragma unroll
+          for (int s = 0; s < KS; ++s)
+#pragma unroll
+            for (int u = 0; u < BF_NJ; ++u) {
+              const float4 b = vt[((jg + u) * KS + s) * 32 + lane];
+              const unsigned bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+              const unsigned bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+              mma_tf32(sml[u], alo[s], bh0, bh1);
+              mma_tf32(sml[u], ahi[s], bl0, bl1);
+              mma_tf32(big[u], ahi[s], bh0, bh1);
+            }
+#pragma unroll
+          for (int u = 0; u < BF_NJ; ++u) {
+            float g[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) g[e] = big[u][e] + sml[u][e];
+            entries(sx, jg + u, g);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int jt = 0; jt < BF_TILES; ++jt) {
+          // the rows of V of the thread's two columns, 2 W floats in a row
+          const float* vp = sv + (8 * jt + 2 * tig) * W;
+          float vv[2 * W];
+          if constexpr (W == 1) {
+            const float2 t2 = *reinterpret_cast<const float2*>(vp);
+            vv[0] = t2.x;
+            vv[1] = t2.y;
+          } else {
+#pragma unroll
+            for (int c = 0; c < 2 * W; c += 4) {
+              const float4 t4 = *reinterpret_cast<const float4*>(vp + c);
+              vv[c] = t4.x;
+              vv[c + 1] = t4.y;
+              vv[c + 2] = t4.z;
+              vv[c + 3] = t4.w;
+            }
+          }
+          float g[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, cc = e & 1;
+            float s = 0.0f;
+#pragma unroll
+            for (int c = 0; c < W; ++c) s = fmaf(cr[h][c], vv[cc * W + c], s);
+            g[e] = s;
+          }
+          entries(sx, jt, g);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) acc[s] += (double)tsum[s];
+    }
   }
 
   if constexpr (DX && D > 0) {
@@ -454,7 +653,7 @@ __global__ void __launch_bounds__(THREADS, bf_min_blocks<MMA, W, LEAF>())
 template <bool MMA, int W, int D, int LEAF, bool DX>
 cudaError_t bf_one(const BwdFullArgs& a, dim3 grid, cudaStream_t st, int* resident) {
   auto kernel = matvec_bwd_full_kernel<MMA, W, D, LEAF, DX>;
-  const size_t smem = bf_smem_bytes(MMA, W, D > 0 ? D : a.d);
+  const size_t smem = bf_smem_bytes(MMA, W, bf_x_floats<D>(D > 0 ? D : a.d));
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   if (resident != nullptr) {
@@ -492,19 +691,21 @@ BwdFullFn bf_pick_width(int mma, int width) {
   }
 }
 
-// A route's instantiation for a plan: D = 4 or 0 for a compiled leaf, 0 for
-// the interpreter.
+// A route's instantiation for a plan: D = 4 for a compiled leaf, 0 for the
+// interpreter (the sliced layout: bf_pick_sliced).
 template <int LEAF>
 BwdFullFn bf_pick(const BwdFullPlan& p) {
-  if (p.D == 0)
-    return p.want_dx ? bf_pick_width<LEAF, 0, true>(p.mma, p.width)
-                     : bf_pick_width<LEAF, 0, false>(p.mma, p.width);
-  if constexpr (LEAF != 0) {
-    if (p.D == 4)
-      return p.want_dx ? bf_pick_width<LEAF, 4, true>(p.mma, p.width)
-                       : bf_pick_width<LEAF, 4, false>(p.mma, p.width);
-  }
-  return nullptr;
+  constexpr int D = LEAF == 0 ? 0 : 4;
+  if (p.D != D) return nullptr;
+  return p.want_dx ? bf_pick_width<LEAF, D, true>(p.mma, p.width)
+                   : bf_pick_width<LEAF, D, false>(p.mma, p.width);
+}
+
+// A route's sliced-layout instantiation for a plan (D = X_SLICED).
+template <int LEAF>
+BwdFullFn bf_pick_sliced(const BwdFullPlan& p) {
+  return p.want_dx ? bf_pick_width<LEAF, X_SLICED, true>(p.mma, p.width)
+                   : bf_pick_width<LEAF, X_SLICED, false>(p.mma, p.width);
 }
 
 }  // namespace
@@ -515,3 +716,9 @@ BwdFullFn gm_bwd_full_pick_rbf(const BwdFullPlan& p);
 BwdFullFn gm_bwd_full_pick_matern12(const BwdFullPlan& p);
 BwdFullFn gm_bwd_full_pick_matern32(const BwdFullPlan& p);
 BwdFullFn gm_bwd_full_pick_matern52(const BwdFullPlan& p);
+// The sliced layout's instantiations: the interpreter
+// (gram_matvec_bwd_sliced.cu), RBF (gram_matvec_bwd_sliced_rbf.cu), the
+// Materns (gram_matvec_bwd_sliced_matern.cu).
+BwdFullFn gm_bwd_full_pick_sliced(const BwdFullPlan& p);
+BwdFullFn gm_bwd_full_pick_sliced_rbf(const BwdFullPlan& p);
+BwdFullFn gm_bwd_full_pick_sliced_matern(const BwdFullPlan& p);

@@ -50,9 +50,16 @@
 //     gram's backward, gram_bwd.cu). The wrapper turns them into dL/dc0 = S0 and
 //     dL/dc1 = c0 S1 / (-c1 log2 e) (RBF) or c0 S1 / c1 (Matern)
 //     (kernel_ops.bwd_sym_coef). x is held in registers at a padded width
-//     D = 4 or 8, and above d = 8 read from shared memory in a loop (D = 0).
-//     Every other tree takes LEAF = 0, tree_grad's interpreter
-//     (gram_matvec_common.cuh), with d read in a loop.
+//     D = 4 or 8. Every other tree takes LEAF = 0, tree_grad's interpreter
+//     (gram_matvec_common.cuh), with x_i and the warps' x_j buffers at width
+//     d in shared memory and d read in a loop (D = 0), up to d = 8.
+//   * Any d (D = X_SLICED, gram_matvec_slice.cuh), as in K3: past those
+//     widths the block stages 32 coordinates of x_i and x_j of a tile a
+//     step from a prescaled padded copy (cp.async, double-buffered); a
+//     thread sums its 4 x 4 squared distances in registers across the
+//     slices, then weighs them in D = 0's order. The warps' buffers then
+//     hold [v_j | ct_j] only. Against D = 0 it measured 2.1x faster at
+//     d = 9 and 16x at d = 64 (PERF.md).
 //   * Equal bits on every run. A thread sums its coefficient terms in fp32
 //     over a tile, then in float64 over the item; the block reduces its
 //     threads in a fixed order and writes one float64 partial per work item,
@@ -61,7 +68,7 @@
 
 #pragma once
 
-#include "gram_matvec_common.cuh"
+#include "gram_matvec_slice.cuh"
 
 // What one launch of the sweep reads and writes (device pointers).
 struct BwdSymArgs {
@@ -75,6 +82,8 @@ struct BwdSymArgs {
   const float* coef;
   int n_coef;
   int n, d, r, need_l2;
+  const float* xs;   // sliced layout: x prescaled, 64-row tiles x dp, zero past d
+  int dp;
 };
 
 namespace {
@@ -98,13 +107,15 @@ __host__ __device__ constexpr int bs_sums() {
 }
 
 // Shared memory of one block, in floats: the block's reduction (as
-// doubles), the program and its operand table, x_i (D = 0 only) and the
-// warps' double buffers of [v_j | ct_j] and x_j.
+// doubles), the program and its operand table, x_i (D = 0; two steps'
+// slices of x_i and x_j in the sliced layout) and the warps' double buffers
+// of [v_j | ct_j] and x_j (none in the sliced layout).
 template <int R, int D>
 __host__ __device__ inline size_t bs_smem_floats(int d) {
-  const int dx = D > 0 ? D : d;
+  const int dx = D > 0 ? D : D == 0 ? d : 0;
   return (size_t)2 * BS_WARPS * MAX_BWD_COEF + MAX_BWD_COEF + 4 * MAX_BWD_INSTR +
-         (D > 0 ? 0 : TILE * d) + (size_t)BS_WARPS * 2 * BS_WCOLS * (bs_ldb<R>() + dx);
+         (D > 0 ? 0 : D == 0 ? TILE * d : 4 * TILE * X_SLICE_LD) +
+         (size_t)BS_WARPS * 2 * BS_WCOLS * (bs_ldb<R>() + dx);
 }
 
 // w[i] = a[i] . b for the thread's 4 rows; b, P floats (P even) in shared
@@ -158,7 +169,7 @@ __global__ void __launch_bounds__(THREADS) matvec_bwd_sym_kernel(BwdSymArgs a) {
   constexpr int PB = (BS_WCOLS * P + 31) / 32;     // [v_j | ct_j] values a lane prefetches
   constexpr int PX = D > 0 ? (BS_WCOLS * D + 31) / 32 : 1;
   const int n = a.n, d = a.d, r = a.r;
-  const int dx = D > 0 ? D : d;
+  const int dx = D > 0 ? D : D == 0 ? d : 0;       // x_j's width in the buffers
   const int wstride = BS_WCOLS * (LDB + dx);       // one buffer of a warp
 
   extern __shared__ __align__(16) float smem[];
@@ -167,7 +178,8 @@ __global__ void __launch_bounds__(THREADS) matvec_bwd_sym_kernel(BwdSymArgs a) {
   int* s_prog = reinterpret_cast<int*>(s_coef + MAX_BWD_COEF);           // 2 MAX_BWD_INSTR
   int* s_kid = s_prog + 2 * MAX_BWD_INSTR;                               // 2 MAX_BWD_INSTR
   float* s_xi = reinterpret_cast<float*>(s_kid + 2 * MAX_BWD_INSTR);     // TILE x d (D = 0)
-  float* s_wb = s_xi + (D > 0 ? 0 : TILE * d);  // warps x 2 x (8 LDB + 8 dx)
+  // warps x 2 x (8 LDB + 8 dx), after x_i (D = 0) or two steps' slices
+  float* s_wb = s_xi + (D > 0 ? 0 : D == 0 ? TILE * d : 4 * TILE * X_SLICE_LD);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ty = lane & 15, tx = lane >> 4;
@@ -242,7 +254,7 @@ __global__ void __launch_bounds__(THREADS) matvec_bwd_sym_kernel(BwdSymArgs a) {
         const int e = lane + 32 * q;
         if (e < BS_WCOLS * D) bx[e] = px[q];
       }
-    } else {
+    } else if constexpr (D == 0) {
       const int row0 = j * TILE + wcol;
       for (int e = lane; e < BS_WCOLS * d; e += 32) {
         const int row = row0 + e / d;
@@ -269,34 +281,83 @@ __global__ void __launch_bounds__(THREADS) matvec_bwd_sym_kernel(BwdSymArgs a) {
     float t[NS];
 #pragma unroll
     for (int s = 0; s < NS; ++s) t[s] = 0.0f;
+    if constexpr (D == X_SLICED) {
+      float sq[4][4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int col = 4 * tx + jj;
-      float w[4];
-      bs_pair_weights<P>(w, ai, cur + col * LDB);
-      const float* xb = cur + BS_WCOLS * LDB + col * dx;
-      float xj[D > 0 ? D : 1];
-      if constexpr (D > 0) {
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int k = 0; k < D; ++k) xj[k] = xb[k];
-      }
+        for (int jj = 0; jj < 4; ++jj) sq[i][jj] = 0.0f;
+      // slice c of tile j is step (j - j0) nsl + c; the first is issued
+      // with the first tile
+      const int nsl = a.dp / X_SLICE, steps = (j1 - j0) * nsl;
+      auto issue = [&](int u) {
+        const int jt = j0 + u / nsl, cs = u % nsl;
+        slice_rows<TILE, TILE>(s_xi + (u & 1) * 2 * TILE * X_SLICE_LD, a.xs, row_i, a.xs,
+                               jt * TILE, a.dp, cs * X_SLICE);
+        cp_async_commit();
+      };
+      if (j == j0) issue(0);
+      for (int c = 0; c < nsl; ++c) {
+        const int u = (j - j0) * nsl + c;
+        cp_async_wait_all();
+        __syncthreads();  // step u is in place; every warp is done with step u - 1
+        if (u + 1 < steps) issue(u + 1);
+        const float* xa = s_xi + (u & 1) * 2 * TILE * X_SLICE_LD;  // x_i
+        const float* xb = xa + TILE * X_SLICE_LD;                   // x_j
+#pragma unroll 2
+        for (int k = 0; k < X_SLICE; k += 4) {
+          float4 a4[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float sq = 0.0f;
-        if constexpr (D > 0) {
+          for (int i = 0; i < 4; ++i)
+            a4[i] = *reinterpret_cast<const float4*>(xa + (ty + 16 * i) * X_SLICE_LD + k);
 #pragma unroll
-          for (int k = 0; k < D; ++k) {
-            const float u = xi[i][k] - xj[k];
-            sq = fmaf(u, u, sq);
-          }
-        } else {
-          const float* xa = s_xi + (ty + 16 * i) * d;
-          for (int k = 0; k < d; ++k) {
-            const float u = xa[k] - xb[k];
-            sq = fmaf(u, u, sq);
+          for (int jj = 0; jj < 4; ++jj) {
+            const float4 b4 =
+                *reinterpret_cast<const float4*>(xb + (wcol + 4 * tx + jj) * X_SLICE_LD + k);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sq_add4(sq[i][jj], a4[i], b4);
           }
         }
-        bs_entry<LEAF>(sq, w[i], t, s_prog, s_kid, s_coef, a.n_instr, a.need_l2);
+      }
+      // the entries weighed in D = 0's order
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float w[4];
+        bs_pair_weights<P>(w, ai, cur + (4 * tx + jj) * LDB);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          bs_entry<LEAF>(sq[i][jj], w[i], t, s_prog, s_kid, s_coef, a.n_instr, a.need_l2);
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = 4 * tx + jj;
+        float w[4];
+        bs_pair_weights<P>(w, ai, cur + col * LDB);
+        const float* xb = cur + BS_WCOLS * LDB + col * dx;
+        float xj[D > 0 ? D : 1];
+        if constexpr (D > 0) {
+#pragma unroll
+          for (int k = 0; k < D; ++k) xj[k] = xb[k];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float sq = 0.0f;
+          if constexpr (D > 0) {
+#pragma unroll
+            for (int k = 0; k < D; ++k) {
+              const float u = xi[i][k] - xj[k];
+              sq = fmaf(u, u, sq);
+            }
+          } else {
+            const float* xa = s_xi + (ty + 16 * i) * d;
+            for (int k = 0; k < d; ++k) {
+              const float u = xa[k] - xb[k];
+              sq = fmaf(u, u, sq);
+            }
+          }
+          bs_entry<LEAF>(sq, w[i], t, s_prog, s_kid, s_coef, a.n_instr, a.need_l2);
+        }
       }
     }
     // a diagonal tile holds each off-diagonal pair twice: half its weight
@@ -352,11 +413,11 @@ cudaError_t bs_launch_d(const BwdSymArgs& a, int R, int n_items, cudaStream_t st
   }
 }
 
-// A compiled leaf at x width D (4, 8, or 0 for a loop over d).
+// A compiled leaf at x width D (4 or 8; the sliced layout is
+// gm_bwd_sym_launch_sliced).
 template <int LEAF>
 cudaError_t bs_launch_leaf(const BwdSymArgs& a, int R, int D, int n_items, cudaStream_t st) {
   switch (D) {
-    case 0: return bs_launch_d<LEAF, 0>(a, R, n_items, st);
     case 4: return bs_launch_d<LEAF, 4>(a, R, n_items, st);
     case 8: return bs_launch_d<LEAF, 8>(a, R, n_items, st);
     default: return cudaErrorInvalidValue;
@@ -367,4 +428,7 @@ cudaError_t bs_launch_leaf(const BwdSymArgs& a, int R, int D, int n_items, cudaS
 
 // The Matern instantiations (gram_matvec_bwd_sym_matern.cu).
 cudaError_t gm_bwd_sym_launch_matern(const BwdSymArgs& a, int leaf, int R, int D, int n_items,
+                                     cudaStream_t st);
+// Every route's sliced instantiations (gram_matvec_bwd_sym_sliced.cu).
+cudaError_t gm_bwd_sym_launch_sliced(const BwdSymArgs& a, int leaf, int R, int n_items,
                                      cudaStream_t st);

@@ -6,7 +6,9 @@
 // says why). The kernel template lives here so that its instantiations can
 // be compiled in several sources at once:
 // gram_matvec.cu (the interpreted trees and RBF, the staging pass and the
-// launcher) and gram_matvec_full_matern.cu (the Matern family).
+// launcher), gram_matvec_full_matern.cu (the Matern family), and
+// gram_matvec_full_sliced.cu and gram_matvec_full_sliced_matern.cu (the
+// sliced layout).
 //
 // What bounds it on this card. At n = m = 102400 and r columns (r_pad, r
 // rounded up to a multiple of 8) the product is 3 x 2 n^2 r_pad TF32 MMA
@@ -57,9 +59,20 @@
 //   * Compiled leaves, as in K3 (gram_matvec_common.cuh): one RBF or Matern
 //     leaf is an instantiation with prescaled x (RBF: one ex2 an entry) and
 //     the amplitude applied to the sums; x at width D = 4 in registers for
-//     d <= 4, else read from shared memory in a loop (D = 0). Every other
-//     tree takes the postfix interpreter (LEAF = 0, D = 0). The wrapper picks
-//     the route before the launch.
+//     d <= 4. Every other tree takes the postfix interpreter (LEAF = 0),
+//     with x1's rows and the x2 stages at full width in shared memory and d
+//     read in a loop (D = 0), up to d = 8. The wrapper picks the route and
+//     the layout before the launch.
+//   * Any d (D = X_SLICED, gram_matvec_slice.cuh): past those widths x1 is
+//     prescaled into a copy, and each step stages 32 coordinates of the
+//     block's x1 rows and of the stage's x2 rows (cp.async,
+//     double-buffered; V's fragments with a stage's first step). A thread
+//     sums the squared distances of the 32 A-fragment entries it owns in a
+//     stage (MT x 4 k-steps x 4) in registers across the slices: the slice
+//     loop wraps the stage's k-steps, so V's fragments are read once. Then
+//     it evaluates them and runs the stage's MMAs as above. Shared memory
+//     does not grow with d. Against D = 0 it measured 1.6x faster at d = 9
+//     and 10x at d = 64 (PERF.md).
 //   * Ragged edges: the staging pass zero-pads V rows past m and columns past
 //     r, and gives x2 rows past m zero coordinates, so their entries are
 //     finite and meet zero V. A NaN in V or in the coefficients reaches the
@@ -67,11 +80,11 @@
 
 #pragma once
 
-#include "gram_matvec_common.cuh"
+#include "gram_matvec_slice.cuh"
 
 // What one launch of the sweep reads and writes (device pointers).
 struct FullArgs {
-  const float* x1;   // n x d, centred
+  const float* x1;   // n x d, centred; sliced: prescaled, 128-row blocks x dx
   const float* x2s;  // m_pad x dx: x2 prescaled, zero past m and past d
   const float* vf;   // passes x (m_pad / 8) x nt x 32 x 4: V's B fragments, hi and lo
   float* out;        // n x r
@@ -89,13 +102,19 @@ constexpr int FULL_WARPS = THREADS / 32;
 constexpr int FULL_STAGE = 64;   // x2 rows of a stage: 8 k-steps, 4 a k-half
 constexpr int FULL_M_ALIGN = FULL_STAGE;  // x2 rows are padded to whole stages
 
+// a step's slices of the block's x1 rows and the stage's x2 rows (sliced)
+constexpr int FULL_SLICE_BUF = (FULL_ROWS + FULL_STAGE) * X_SLICE_LD;
+
 // Shared memory of one block, in floats: the program, x1's rows (D = 0),
-// two stages of x2 and two of V's fragments (aliased by the k-halves' sum
-// at the end).
+// two stages of x2 (in the sliced layout two steps' slices of x1 and x2 in
+// their place) and two of V's fragments (aliased by the k-halves' sum at the
+// end).
 template <int D>
 __host__ __device__ inline size_t full_smem_floats(int d, int dx, int nt) {
-  return (size_t)MAX_COEF + 2 * MAX_INSTR + (D == 0 ? FULL_ROWS * d : 0) +
-         2 * FULL_STAGE * dx + 2 * 16 * FULL_STAGE * nt;
+  return (size_t)MAX_COEF + 2 * MAX_INSTR +
+         (D == X_SLICED ? 2 * FULL_SLICE_BUF
+                        : (D == 0 ? FULL_ROWS * d : 0) + 2 * FULL_STAGE * dx) +
+         2 * 16 * FULL_STAGE * nt;
 }
 
 template <int NT, int D, int LEAF>
@@ -110,9 +129,11 @@ __global__ void __launch_bounds__(THREADS) matvec_full_tc_kernel(FullArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* s_coef = smem;
   int* s_prog = reinterpret_cast<int*>(smem + MAX_COEF);
-  float* s_x1 = smem + MAX_COEF + 2 * MAX_INSTR;          // FULL_ROWS x d (D = 0)
-  float* s_x2 = s_x1 + (D == 0 ? FULL_ROWS * d : 0);      // 2 x FULL_STAGE x dx
-  float* s_v = s_x2 + 2 * FULL_STAGE * dx;                // 2 x VSTAGE
+  // FULL_ROWS x d (D = 0); 2 x FULL_SLICE_BUF (sliced)
+  float* s_x1 = smem + MAX_COEF + 2 * MAX_INSTR;
+  // 2 x FULL_STAGE x dx (none sliced)
+  float* s_x2 = s_x1 + (D == 0 ? FULL_ROWS * d : D == X_SLICED ? 2 * FULL_SLICE_BUF : 0);
+  float* s_v = s_x2 + (D == X_SLICED ? 0 : 2 * FULL_STAGE * dx);  // 2 x VSTAGE
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -137,7 +158,7 @@ __global__ void __launch_bounds__(THREADS) matvec_full_tc_kernel(FullArgs a) {
         for (int k = 0; k < D; ++k)
           xr[i][h][k] = (row < n && k < d) ? xs * a.x1[(size_t)row * d + k] : 0.0f;
       }
-  } else {
+  } else if constexpr (D == 0) {
     for (int e = threadIdx.x; e < FULL_ROWS * d; e += THREADS)
       s_x1[e] = row0 + e / d < n ? xs * a.x1[(size_t)row0 * d + e] : 0.0f;
   }
@@ -204,46 +225,147 @@ __global__ void __launch_bounds__(THREADS) matvec_full_tc_kernel(FullArgs a) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
   const int stages = a.m_pad / FULL_STAGE;
-  stage(0, 0);
-  for (int t = 0; t < stages; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // stage t is in place; every warp is done with stage t - 1
-    if (t + 1 < stages) stage(t + 1, (t + 1) & 1);
-    const float* x2t = s_x2 + (t & 1) * FULL_STAGE * dx;
-    const float4* vt = reinterpret_cast<const float4*>(s_v + (t & 1) * VSTAGE);
+  if constexpr (D == X_SLICED) {
+    // step u: slice c of stage t; x1 is the prescaled copy, dx its width
+    const int nsl = dx / X_SLICE, steps = stages * nsl;
+    auto issue = [&](int u) {
+      const int t = u / nsl, c = u - t * nsl;
+      slice_rows<FULL_ROWS, FULL_STAGE>(s_x1 + (u & 1) * FULL_SLICE_BUF, a.x1, row0, a.x2s,
+                                        t * FULL_STAGE, dx, c * X_SLICE);
+      if (c == 0) {
+        const float4* gv = reinterpret_cast<const float4*>(vsrc + (size_t)t * VSTAGE);
+        float4* sv = reinterpret_cast<float4*>(s_v + (t & 1) * VSTAGE);
+        for (int e = threadIdx.x; e < VSTAGE / 4; e += THREADS) cp_async16(sv + e, gv + e);
+      }
+      cp_async_commit();
+    };
+    // the squared distances of the thread's A-fragment entries of the
+    // k-half's k-steps: [k-step][i][f], f as in fragments
+    float sq[KS][MT][4];
+    issue(0);
+    for (int u = 0; u < steps; ++u) {
+      const int t = u / nsl, c = u - t * nsl;
+      cp_async_wait_all();
+      __syncthreads();  // step u is in place; every warp is done with step u - 1
+      if (u + 1 < steps) issue(u + 1);
+      if (c == 0) {
+#pragma unroll
+        for (int q = 0; q < KS; ++q)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int f = 0; f < 4; ++f) sq[q][i][f] = 0.0f;
+      }
+      const float* xa = s_x1 + (u & 1) * FULL_SLICE_BUF;  // x1 rows
+      const float* xb = xa + FULL_ROWS * X_SLICE_LD;       // the stage's x2 rows
+#pragma unroll 2
+      for (int k = 0; k < X_SLICE; k += 4) {
+        float4 a4[MT][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            a4[i][h] = *reinterpret_cast<const float4*>(xa + (wrow + 16 * i + gid + 8 * h) *
+                                                                 X_SLICE_LD + k);
+#pragma unroll
+        for (int q = 0; q < KS; ++q)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const float4 b4 = *reinterpret_cast<const float4*>(
+                xb + (8 * (kg * KS + q) + tig + 4 * cc) * X_SLICE_LD + k);
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) sq_add4(sq[q][i][h + 2 * cc], a4[i][h], b4);
+          }
+      }
+      if (c + 1 < nsl) continue;
 
-    // the k-half's k-steps two at a time: per tile of the pass, lo hi and
-    // hi lo, then hi hi, of both into a zeroed partial, which a rounded fp32
-    // add takes into the sum
-#pragma unroll 1
-    for (int q = 0; q < KS; q += 2) {
-      const int s0 = kg * KS + q;
-      unsigned ahi[2][MT][4], alo[2][MT][4];
-      fragments(x2t, s0, ahi[0], alo[0]);
-      fragments(x2t, s0 + 1, ahi[1], alo[1]);
+      // the stage's entries and MMAs, as the full-width layout runs them
+      const float4* vt = reinterpret_cast<const float4*>(s_v + (t & 1) * VSTAGE);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float part[MT][4];
+      for (int q = 0; q < KS; q += 2) {
+        const int s0 = kg * KS + q;
+        unsigned ahi[2][MT][4], alo[2][MT][4];
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+        for (int u2 = 0; u2 < 2; ++u2)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) part[i][e] = 0.0f;
+          for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float4 b = vt[((s0 + u) * NT + j) * 32 + lane];
-          const unsigned bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
-          const unsigned bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+            for (int f = 0; f < 4; ++f) {
+              const float ent =
+                  leaf_entry<LEAF>(sq[q + u2][i][f], s_prog, s_coef, a.n_instr, a.need_l2);
+              ahi[u2][i][f] = tf32_rna(ent);
+              alo[u2][i][f] = tf32_rna(ent - __uint_as_float(ahi[u2][i][f]));
+            }
 #pragma unroll
-          for (int i = 0; i < MT; ++i) mma_tf32(part[i], alo[u][i], bh0, bh1);
+        for (int j = 0; j < NT; ++j) {
+          float part[MT][4];
 #pragma unroll
-          for (int i = 0; i < MT; ++i) mma_tf32(part[i], ahi[u][i], bl0, bl1);
+          for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int i = 0; i < MT; ++i) mma_tf32(part[i], ahi[u][i], bh0, bh1);
+            for (int e = 0; e < 4; ++e) part[i][e] = 0.0f;
+#pragma unroll
+          for (int u2 = 0; u2 < 2; ++u2) {
+            const float4 b = vt[((s0 + u2) * NT + j) * 32 + lane];
+            const unsigned bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+            const unsigned bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma_tf32(part[i], alo[u2][i], bh0, bh1);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma_tf32(part[i], ahi[u2][i], bl0, bl1);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma_tf32(part[i], ahi[u2][i], bh0, bh1);
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][e];
         }
+      }
+    }
+  } else {
+    stage(0, 0);
+    for (int t = 0; t < stages; ++t) {
+      cp_async_wait_all();
+      __syncthreads();  // stage t is in place; every warp is done with stage t - 1
+      if (t + 1 < stages) stage(t + 1, (t + 1) & 1);
+      const float* x2t = s_x2 + (t & 1) * FULL_STAGE * dx;
+      const float4* vt = reinterpret_cast<const float4*>(s_v + (t & 1) * VSTAGE);
+
+      // the k-half's k-steps two at a time: per tile of the pass, lo hi and
+      // hi lo, then hi hi, of both into a zeroed partial, which a rounded fp32
+      // add takes into the sum
+#pragma unroll 1
+      for (int q = 0; q < KS; q += 2) {
+        const int s0 = kg * KS + q;
+        unsigned ahi[2][MT][4], alo[2][MT][4];
+        fragments(x2t, s0, ahi[0], alo[0]);
+        fragments(x2t, s0 + 1, ahi[1], alo[1]);
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+        for (int j = 0; j < NT; ++j) {
+          float part[MT][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][e];
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[i][e] = 0.0f;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float4 b = vt[((s0 + u) * NT + j) * 32 + lane];
+            const unsigned bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+            const unsigned bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma_tf32(part[i], alo[u][i], bh0, bh1);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma_tf32(part[i], ahi[u][i], bl0, bl1);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma_tf32(part[i], ahi[u][i], bh0, bh1);
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][e];
+        }
       }
     }
   }
@@ -309,11 +431,11 @@ cudaError_t full_launch_d(const FullArgs& a, int passes, cudaStream_t st) {
   }
 }
 
-// A compiled leaf at x width D (4, or 0 for a loop over d).
+// A compiled leaf at x width D (4; the sliced layout is
+// gm_full_launch_sliced).
 template <int LEAF>
 cudaError_t full_launch_leaf(const FullArgs& a, int passes, int D, cudaStream_t st) {
   switch (D) {
-    case 0: return full_launch_d<LEAF, 0>(a, passes, st);
     case 4: return full_launch_d<LEAF, 4>(a, passes, st);
     default: return cudaErrorInvalidValue;
   }
@@ -324,3 +446,8 @@ cudaError_t full_launch_leaf(const FullArgs& a, int passes, int D, cudaStream_t 
 // The Matern instantiations (gram_matvec_full_matern.cu).
 cudaError_t gm_full_launch_matern(const FullArgs& a, int leaf, int passes, int D,
                                   cudaStream_t st);
+// The sliced layout's instantiations: the interpreter and RBF
+// (gram_matvec_full_sliced.cu), the Materns (gram_matvec_full_sliced_matern.cu).
+cudaError_t gm_full_launch_sliced(const FullArgs& a, int leaf, int passes, cudaStream_t st);
+cudaError_t gm_full_launch_sliced_matern(const FullArgs& a, int leaf, int passes,
+                                         cudaStream_t st);

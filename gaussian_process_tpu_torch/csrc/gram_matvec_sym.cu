@@ -17,60 +17,63 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
-// x's width in registers: d padded to 2, 4 or 8; 0 (a loop over d) above.
-int sym_x_width(int d) { return d <= 2 ? 2 : d <= 4 ? 4 : d <= 8 ? 8 : 0; }
+// The x width of a plan: X_SLICED for the sliced layout; else d padded to
+// 2, 4 or 8 in registers for a compiled leaf (0 past d = 8: no such
+// instantiation), 0 (a loop over d) for the interpreter.
+int sym_x_width(int leaf, int d, int sliced) {
+  if (sliced) return X_SLICED;
+  if (leaf == 0) return 0;
+  return d <= 2 ? 2 : d <= 4 ? 4 : d <= 8 ? 8 : 0;
+}
 
 }  // namespace
 
 extern "C" {
-
-// Shared-memory bytes one K3 block needs at pass width R and d on either
-// route (the wrapper checks them against the card's limit before launching).
-size_t gm_sym_smem_bytes(int R, int d) {
-  switch (R) {
-    case 1: return sizeof(float) * sym_smem_floats<1, 0>(d);
-    case 2: return sizeof(float) * sym_smem_floats<2, 0>(d);
-    case 4: return sizeof(float) * sym_smem_floats<4, 0>(d);
-    case 8: return sizeof(float) * sym_smem_floats<8, 0>(d);
-    default: return sizeof(float) * sym_smem_floats<16, 0>(d);
-  }
-}
 
 // out (n x r) = K(x, x) @ v from the upper-triangle tiles, bitwise the same
 // on every run. items: n_items work items (ti, j0, j1) that cover every
 // upper tile once (kernel_ops.sym_schedule). leaf: 0 for the postfix
 // interpreter, else the opcode of the tree's one leaf (RBF or a Matern).
 // R: the columns of a pass, 1, 2, 4, 8 or 16 (kernel_ops.sym_columns).
-// Both are chosen by the wrapper. Scratch from the caller: sum (n x r int64,
-// zeroed), flag (r int32, 1 where a column's bound is not finite, else 0)
-// and scale (r doubles, 2^e_c). Two launches: the sweep into sum, then the
-// finishing pass into out. Returns the first launch error, else
-// cudaGetLastError().
+// Both are chosen by the wrapper, with the layout: sliced = 1 for the
+// sliced layout (any d), with xs scratch from the caller (n rounded up to 64
+// rows x d rounded up to 32 floats) and one launch first for x's prescaled
+// copy; 0 for x at full width (a compiled leaf at d <= 8, the interpreter),
+// xs null. Scratch from the caller: sum (n x r int64, zeroed), flag (r
+// int32, 1 where a column's bound is not finite, else 0) and scale (r
+// doubles, 2^e_c). Then the sweep into sum and the finishing pass into
+// out. Returns the first launch error, else cudaGetLastError().
 int gm_matvec_sym(const float* x, const float* v, float* out, void* sum, unsigned int* flag,
                   const double* scale, const int* items, int n_items, const int* prog,
                   int n_instr, const float* coef, int n_coef, int leaf, int R, int n, int d,
-                  int r, int need_l2, void* stream) {
+                  int r, int need_l2, float* xs, int sliced, void* stream) {
   if (bad_program(n_instr, n_coef) || n < 1 || d < 1 || r < 1 || n_items < 1 ||
-      (leaf != 0 && n_instr != 1))
+      (leaf != 0 && n_instr != 1) || (sliced != 0) != (xs != nullptr))
     return (int)cudaErrorInvalidValue;
   const SymArgs a{x, v, static_cast<unsigned long long*>(sum), flag, scale, items, prog,
-                  n_instr, coef, n_coef, n, d, r, need_l2};
+                  n_instr, coef, n_coef, n, d, r, need_l2, xs, slice_width(d)};
+  const int D = sym_x_width(leaf, d, sliced);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (leaf) {
-    case 0:
-      err = sym_launch_d<0, 0>(a, R, n_items, st);
-      break;
-    case OP_RBF:
-      err = sym_launch_leaf<OP_RBF>(a, R, sym_x_width(d), n_items, st);
-      break;
-    case OP_MATERN12:
-    case OP_MATERN32:
-    case OP_MATERN52:
-      err = gm_sym_launch_matern(a, leaf, R, sym_x_width(d), n_items, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (sliced) {
+    err = prescale_rows(x, prog, coef, leaf, xs, n, (n + TILE - 1) / TILE * TILE, d, st);
+    if (err == cudaSuccess) err = gm_sym_launch_sliced(a, leaf, R, n_items, st);
+  } else {
+    switch (leaf) {
+      case 0:
+        err = sym_launch_d<0, 0>(a, R, n_items, st);
+        break;
+      case OP_RBF:
+        err = sym_launch_leaf<OP_RBF>(a, R, D, n_items, st);
+        break;
+      case OP_MATERN12:
+      case OP_MATERN32:
+      case OP_MATERN52:
+        err = gm_sym_launch_matern(a, leaf, R, D, n_items, st);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + 7) / 8;

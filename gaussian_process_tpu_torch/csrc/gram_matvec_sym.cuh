@@ -3,7 +3,8 @@
 // package's ops/pallas/kernel_ops.py. The kernel template lives here so that
 // its instantiations can be compiled in several sources at once:
 // gram_matvec_sym.cu (the interpreted trees and RBF, the launcher and the
-// finishing pass) and gram_matvec_sym_matern.cu (the Matern family).
+// finishing pass), gram_matvec_sym_matern.cu (the Matern family) and
+// gram_matvec_sym_sliced.cu (the sliced layout, every route).
 //
 // What bounds it on this card. At n = 102400 the sweep evaluates
 // n (n + 1) / 2 ~ 5.2e9 entries (one exponential each) and applies each
@@ -46,10 +47,20 @@
 //     SFU's ex2 alone), and the amplitude is applied once to each partial
 //     sum, not to each entry; x is held in
 //     registers at a padded width D = 2, 4 or 8 (zero coordinates add
-//     nothing to a squared distance), and above d = 8 read from shared
-//     memory in a loop (D = 0). Every other tree takes LEAF = 0, the postfix
-//     interpreter of gram_matvec_common.cuh, with d read in a loop. The
-//     wrapper picks the route before the launch.
+//     nothing to a squared distance). Every other tree takes LEAF = 0, the
+//     postfix interpreter of gram_matvec_common.cuh, with x_i and the warps'
+//     x_j at full width in shared memory and d read in a loop (D = 0), up
+//     to d = 8. The wrapper picks the route and the layout before the
+//     launch.
+//   * Any d (D = X_SLICED, gram_matvec_slice.cuh): above those widths, x is
+//     prescaled into a copy padded to whole slices, and for each tile the
+//     block stages 32 coordinates of x_i and x_j a step (cp.async,
+//     double-buffered, one block barrier a step); a thread sums its 4 x 4
+//     squared distances in registers across the slices, then evaluates
+//     and applies them as above. Shared memory does not grow with d, and
+//     the warps' buffers hold V_j only. Against D = 0 it measured 1.5%
+//     slower at d = 9 and 13x faster at d = 64 (PERF.md), so it takes every
+//     d past the compiled widths and, for the interpreter, past d = 8.
 //   * Equal bits on every run. Blocks run in no order, so each fp32 partial
 //     is rounded to a 64-bit fixed-point integer and added with an integer
 //     atomicAdd, which is associative. Column c has its own scale 2^e_c,
@@ -69,7 +80,7 @@
 
 #pragma once
 
-#include "gram_matvec_common.cuh"
+#include "gram_matvec_slice.cuh"
 
 // What one launch of the sweep reads and writes (device pointers).
 struct SymArgs {
@@ -84,6 +95,8 @@ struct SymArgs {
   const float* coef;
   int n_coef;
   int n, d, r, need_l2;
+  const float* xs;  // sliced layout: x prescaled, 64-row tiles x dp, zero past d
+  int dp;
 };
 
 namespace {
@@ -106,14 +119,16 @@ __host__ __device__ constexpr int ilog2() {
 
 // Shared memory of one block, in floats: the scales (as doubles), the
 // program, V_i, the out_i reduction, the warps' entries (R >= 8), x_i
-// (D = 0 only) and the warps' double buffers of x_j and V_j.
+// (D = 0; two steps' slices of x_i and x_j in the sliced layout) and the
+// warps' double buffers of x_j (none in the sliced layout) and V_j.
 template <int R, int D>
 __host__ __device__ inline size_t sym_smem_floats(int d) {
   constexpr int LDV = sym_ldv<R>();
-  const int dx = D > 0 ? D : d;
+  const int dx = D > 0 ? D : D == 0 ? d : 0;
   return (size_t)2 * SYM_R_MAX + MAX_COEF + 2 * MAX_INSTR + TILE * LDV +
          SYM_WARPS * TILE * R + (R >= 8 ? SYM_WARPS * TILE * SYM_LDK : 0) +
-         (D > 0 ? 0 : TILE * d) + (size_t)SYM_WARPS * 2 * SYM_WCOLS * (LDV + dx);
+         (D > 0 ? 0 : D == 0 ? TILE * d : 4 * TILE * X_SLICE_LD) +
+         (size_t)SYM_WARPS * 2 * SYM_WCOLS * (LDV + dx);
 }
 
 // R consecutive floats of shared memory into registers (16-byte reads
@@ -179,7 +194,7 @@ __global__ void __launch_bounds__(THREADS) matvec_sym_kernel(SymArgs a) {
   constexpr int PV = (SYM_WCOLS * R + 31) / 32; // V_j values a lane prefetches
   constexpr int PX = D > 0 ? (SYM_WCOLS * D + 31) / 32 : 1;
   const int n = a.n, d = a.d, r = a.r;
-  const int dx = D > 0 ? D : d;
+  const int dx = D > 0 ? D : D == 0 ? d : 0;   // x_j's width in the buffers
   const int wstride = SYM_WCOLS * (LDV + dx);   // one buffer of a warp
 
   extern __shared__ __align__(16) float smem[];
@@ -190,7 +205,8 @@ __global__ void __launch_bounds__(THREADS) matvec_sym_kernel(SymArgs a) {
   float* s_red = s_vi + TILE * LDV;                 // warps x TILE x R
   float* s_ks = s_red + SYM_WARPS * TILE * R;       // warps x TILE x SYM_LDK (R >= 8)
   float* s_xi = s_ks + (R >= 8 ? SYM_WARPS * TILE * SYM_LDK : 0);  // TILE x d (D = 0)
-  float* s_wb = s_xi + (D > 0 ? 0 : TILE * d);      // warps x 2 x (8 LDV + 8 dx)
+  // warps x 2 x (8 LDV + 8 dx), after x_i (D = 0) or two steps' slices
+  float* s_wb = s_xi + (D > 0 ? 0 : D == 0 ? TILE * d : 4 * TILE * X_SLICE_LD);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ty = lane & 15, tx = lane >> 4;
@@ -261,7 +277,7 @@ __global__ void __launch_bounds__(THREADS) matvec_sym_kernel(SymArgs a) {
         const int e = lane + 32 * q;
         if (e < SYM_WCOLS * D) bx[e] = px[q];
       }
-    } else {
+    } else if constexpr (D == 0) {
       const int row0 = j * TILE + wcol;
       for (int e = lane; e < SYM_WCOLS * d; e += 32) {
         const int row = row0 + e / d;
@@ -273,6 +289,17 @@ __global__ void __launch_bounds__(THREADS) matvec_sym_kernel(SymArgs a) {
   stash(j0, wb);
   __syncthreads();  // V_i, x_i, the program and the first buffers are in place
 
+  // the sliced layout: slice c of tile j is step (j - j0) nsl + c, x_i's
+  // and x_j's rows
+  const int nsl = D == X_SLICED ? a.dp / X_SLICE : 0, steps = (j1 - j0) * nsl;
+  auto issue = [&](int u) {
+    const int jt = j0 + u / nsl, cs = u % nsl;
+    slice_rows<TILE, TILE>(s_xi + (u & 1) * 2 * TILE * X_SLICE_LD, a.xs, row_i, a.xs,
+                           jt * TILE, a.dp, cs * X_SLICE);
+    cp_async_commit();
+  };
+  if constexpr (D == X_SLICED) issue(0);
+
   float acc[4][R];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -283,29 +310,64 @@ __global__ void __launch_bounds__(THREADS) matvec_sym_kernel(SymArgs a) {
     const float* cur = wb + ((j - j0) & 1) * wstride;
     if (j + 1 < j1) fetch(j + 1);
 
-    // the lane's 16 entries
-    const float* xs = cur + SYM_WCOLS * LDV;
+    // the lane's 16 entries: rows ty + 16 i, columns wcol + 4 tx + jj
     float kv[4][4];
+    if constexpr (D == X_SLICED) {
+      float sq[4][4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const float* xb = xs + (4 * tx + jj) * dx;
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float sq = 0.0f;
-        if constexpr (D > 0) {
+        for (int jj = 0; jj < 4; ++jj) sq[i][jj] = 0.0f;
+      for (int c = 0; c < nsl; ++c) {
+        const int u = (j - j0) * nsl + c;
+        cp_async_wait_all();
+        __syncthreads();  // step u is in place; every warp is done with step u - 1
+        if (u + 1 < steps) issue(u + 1);
+        const float* xa = s_xi + (u & 1) * 2 * TILE * X_SLICE_LD;  // x_i
+        const float* xb = xa + TILE * X_SLICE_LD;                   // x_j
+#pragma unroll 2
+        for (int k = 0; k < X_SLICE; k += 4) {
+          float4 a4[4];
 #pragma unroll
-          for (int k = 0; k < D; ++k) {
-            const float t = xi[i][k] - xb[k];
-            sq = fmaf(t, t, sq);
-          }
-        } else {
-          const float* xa = s_xi + (ty + 16 * i) * d;
-          for (int k = 0; k < d; ++k) {
-            const float t = xa[k] - xb[k];
-            sq = fmaf(t, t, sq);
+          for (int i = 0; i < 4; ++i)
+            a4[i] = *reinterpret_cast<const float4*>(xa + (ty + 16 * i) * X_SLICE_LD + k);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float4 b4 =
+                *reinterpret_cast<const float4*>(xb + (wcol + 4 * tx + jj) * X_SLICE_LD + k);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sq_add4(sq[i][jj], a4[i], b4);
           }
         }
-        kv[i][jj] = leaf_entry<LEAF>(sq, s_prog, s_coef, a.n_instr, a.need_l2);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          kv[i][jj] = leaf_entry<LEAF>(sq[i][jj], s_prog, s_coef, a.n_instr, a.need_l2);
+    } else {
+      const float* xs = cur + SYM_WCOLS * LDV;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float* xb = xs + (4 * tx + jj) * dx;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float sq = 0.0f;
+          if constexpr (D > 0) {
+#pragma unroll
+            for (int k = 0; k < D; ++k) {
+              const float t = xi[i][k] - xb[k];
+              sq = fmaf(t, t, sq);
+            }
+          } else {
+            const float* xa = s_xi + (ty + 16 * i) * d;
+            for (int k = 0; k < d; ++k) {
+              const float t = xa[k] - xb[k];
+              sq = fmaf(t, t, sq);
+            }
+          }
+          kv[i][jj] = leaf_entry<LEAF>(sq, s_prog, s_coef, a.n_instr, a.need_l2);
+        }
       }
     }
 
@@ -436,11 +498,11 @@ cudaError_t sym_launch_d(const SymArgs& a, int R, int n_items, cudaStream_t st) 
   }
 }
 
-// A compiled leaf at x width D (2, 4, 8, or 0 for a loop over d).
+// A compiled leaf at x width D (2, 4 or 8; the sliced layout is
+// gm_sym_launch_sliced).
 template <int LEAF>
 cudaError_t sym_launch_leaf(const SymArgs& a, int R, int D, int n_items, cudaStream_t st) {
   switch (D) {
-    case 0: return sym_launch_d<LEAF, 0>(a, R, n_items, st);
     case 2: return sym_launch_d<LEAF, 2>(a, R, n_items, st);
     case 4: return sym_launch_d<LEAF, 4>(a, R, n_items, st);
     case 8: return sym_launch_d<LEAF, 8>(a, R, n_items, st);
@@ -452,4 +514,7 @@ cudaError_t sym_launch_leaf(const SymArgs& a, int R, int D, int n_items, cudaStr
 
 // The Matern instantiations (gram_matvec_sym_matern.cu).
 cudaError_t gm_sym_launch_matern(const SymArgs& a, int leaf, int R, int D, int n_items,
+                                 cudaStream_t st);
+// Every route's sliced instantiations (gram_matvec_sym_sliced.cu).
+cudaError_t gm_sym_launch_sliced(const SymArgs& a, int leaf, int R, int n_items,
                                  cudaStream_t st);

@@ -29,12 +29,16 @@ DEFAULT_BUILD_DIR = PKG_DIR / "_build"
 # utils.profiling.enable_persistent_compile_cache)
 BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("chol_panel.cu", "gram.cu", "gram_bwd.cu", "gram_matvec.cu",
-           "gram_matvec_full_matern.cu", "gram_matvec_bwd.cu", "gram_matvec_bwd_rbf.cu",
+           "gram_matvec_full_matern.cu", "gram_matvec_full_sliced.cu",
+           "gram_matvec_full_sliced_matern.cu", "gram_matvec_bwd.cu", "gram_matvec_bwd_rbf.cu",
            "gram_matvec_bwd_matern12.cu", "gram_matvec_bwd_matern32.cu",
-           "gram_matvec_bwd_matern52.cu", "gram_matvec_bwd_sym.cu",
-           "gram_matvec_bwd_sym_matern.cu", "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu")
+           "gram_matvec_bwd_matern52.cu", "gram_matvec_bwd_sliced.cu",
+           "gram_matvec_bwd_sliced_rbf.cu", "gram_matvec_bwd_sliced_matern.cu",
+           "gram_matvec_bwd_sym.cu", "gram_matvec_bwd_sym_matern.cu",
+           "gram_matvec_bwd_sym_sliced.cu", "gram_matvec_sym.cu", "gram_matvec_sym_matern.cu",
+           "gram_matvec_sym_sliced.cu")
 HEADERS = ("gram_matvec_common.cuh", "gram_matvec_full.cuh", "gram_matvec_sym.cuh",
-           "gram_matvec_bwd.cuh", "gram_matvec_bwd_sym.cuh")
+           "gram_matvec_bwd.cuh", "gram_matvec_bwd_sym.cuh", "gram_matvec_slice.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -131,29 +135,22 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gm_matvec_sym.argtypes = [p, p, p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, p]
+        lib.gm_matvec_sym.argtypes = [p, p, p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, p,
+                                      i, p]
         lib.gm_matvec_sym.restype = i
-        lib.gm_matvec_full_tc.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
-                                          i, p]
+        lib.gm_matvec_full_tc.argtypes = [*[p] * 8, i, p, *[i] * 11, p]
         lib.gm_matvec_full_tc.restype = i
-        lib.gm_full_tc_smem_bytes.argtypes = [i, i, i]
-        lib.gm_full_tc_smem_bytes.restype = ctypes.c_size_t
-        lib.gm_full_tc_x_width.argtypes = [i, i]
+        lib.gm_full_tc_x_width.argtypes = [i, i, i]
         lib.gm_full_tc_x_width.restype = i
-        lib.gm_sym_smem_bytes.argtypes = [i, i]
-        lib.gm_sym_smem_bytes.restype = ctypes.c_size_t
-        lib.gm_matvec_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, p, *[i] * 13, p]
+        lib.gm_matvec_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p, *[i] * 14, p]
         lib.gm_matvec_bwd.restype = i
-        lib.gm_bwd_full_x_width.argtypes = [i, i]
+        lib.gm_bwd_full_x_width.argtypes = [i, i, i]
         lib.gm_bwd_full_x_width.restype = i
-        lib.gm_bwd_full_smem_bytes.argtypes = [i, i, i, i]
-        lib.gm_bwd_full_smem_bytes.restype = ctypes.c_size_t
-        lib.gm_bwd_full_resident.argtypes = [i, i, i, i, i]
+        lib.gm_bwd_full_resident.argtypes = [i, i, i, i, i, i]
         lib.gm_bwd_full_resident.restype = i
-        lib.gm_matvec_bwd_sym.argtypes = [p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, p]
+        lib.gm_matvec_bwd_sym.argtypes = [p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, p, i,
+                                          p]
         lib.gm_matvec_bwd_sym.restype = i
-        lib.gm_bwd_sym_smem_bytes.argtypes = [i, i]
-        lib.gm_bwd_sym_smem_bytes.restype = ctypes.c_size_t
         lib.gm_gram.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, i, i, p]
         lib.gm_gram.restype = i
         lib.gm_gram_bwd.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, i,

@@ -23,6 +23,10 @@ CUDA kernels do the work on a CUDA tensor:
   the upper-triangle tiles for a same-set call that wants no x-gradient
   after a symmetric forward, a training step's).
 
+The four sweeps take any d: past the widths at which a compiled leaf holds
+x in registers, and past d = 8 for the interpreter, they take the sliced
+layout (:func:`sliced_layout`, ``csrc/gram_matvec_slice.cuh``).
+
 :func:`gram` is the port's one dense-gram dispatcher: fp32 CUDA inputs and
 a stationary kernel take :func:`gram_ad` (``_GramFn``: the tile gram
 forward and its backward kernel, as the JAX ``gram_ad``), anything else the
@@ -123,8 +127,15 @@ DOT_MODES = ("split3", "highest")
 # x2 rows padded to a multiple of FULL_M_ALIGN
 FULL_TILES = (1, 2, 3, 4, 5, 6, 8, 9, 12, 16)
 FULL_M_ALIGN = 64
-# largest dynamic shared memory a block may use on sm_90 (227 KB)
-MAX_SMEM_BYTES = 232448
+# the sweeps' layouts of x (sliced_layout): a compiled leaf holds x in
+# registers up to the widest d its sweep compiles (K2 and K4's full sweep
+# 4, K3 and K4's symmetric sweep 8), the interpreter reads x at full width
+# from shared memory up to INTERP_FULL_WIDTH_D; past these the sweep stages
+# x X_SLICE coordinates at a time, from a copy whose rows are d rounded up
+# to whole slices (csrc/gram_matvec_slice.cuh)
+FULL_HELD_D, SYM_HELD_D, BWD_SYM_HELD_D, BWD_FULL_HELD_D = 4, 8, 8, 4
+INTERP_FULL_WIDTH_D = 8
+X_SLICE = 32
 
 # launches of each kernel, counted where the wrapper launches it: "gram"
 # counts every launch of the tile gram, "gram_ad" those made by its
@@ -472,12 +483,13 @@ def gram_matvec_vjp_reference(
     symmetric one compute the same function): for L = <ct, K(x1, x2) v>
     returns (dL/dcoef, dL/dx1 or None), with the kernel's arithmetic (direct
     squared differences, hand-written leaf derivatives, the same rule at
-    coincident points). Row blocks of ``row_chunk`` rows (None: about 2^24
-    entries each) bound the memory."""
+    coincident points). Row blocks of ``row_chunk`` rows bound the memory
+    (None: about 2^24 entries each, fewer above d = 4, so that the block's
+    d coordinate differences stay near 2^26 values at any d)."""
     n, d = x1c.shape
     m = x2c.shape[0]
     if row_chunk is None:
-        row_chunk = max(1, (1 << 24) // m)
+        row_chunk = max(1, (1 << 26) // (m * max(d, 4)))
     d_coef = torch.zeros(coef.numel(), dtype=coef.dtype, device=coef.device)
     d_x1 = torch.empty((n, d), dtype=x1c.dtype, device=x1c.device) if want_dx else None
     for i in range(0, n, row_chunk):
@@ -514,8 +526,9 @@ def gram_vjp_reference(
     (direct differences, hand-written leaf derivatives, no contribution from
     a coincident pair to dx). ``x2c=None`` is the same set: White's
     coefficient gets the trace of ct, and dL/dx1 is the sum of both roles
-    (``want_dx2`` must be False). Row blocks of ``row_chunk`` rows (None:
-    about 2^24 entries each) bound the memory."""
+    (``want_dx2`` must be False). Row blocks of ``row_chunk`` rows bound the
+    memory (None: about 2^24 entries each, fewer above d = 4, as in
+    :func:`gram_matvec_vjp_reference`)."""
     same = x2c is None
     if same and want_dx2:
         raise ValueError("a same-set gram has one point set: ask for dx1")
@@ -523,7 +536,7 @@ def gram_vjp_reference(
     n, d = x1c.shape
     m = x2c.shape[0]
     if row_chunk is None:
-        row_chunk = max(1, (1 << 24) // m)
+        row_chunk = max(1, (1 << 26) // (m * max(d, 4)))
     d_coef = torch.zeros(coef.numel(), dtype=coef.dtype, device=coef.device)
     d_x1 = torch.empty((n, d), dtype=x1c.dtype, device=x1c.device) if want_dx1 else None
     col = torch.zeros((m, d), dtype=x1c.dtype, device=x1c.device) if want_dx2 or (
@@ -585,15 +598,35 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _forward_args(program, coef, x, smem_bytes):
-    """The library and the program on x's device, once ``smem_bytes(lib)``,
-    the shared memory of one block of the launch, fits."""
+def sliced_layout(route: int, d: int, held_d: int) -> bool:
+    """Whether a matrix-free sweep (K2, K3, both K4 sweeps) stages x in
+    slices of X_SLICE coordinates: for a compiled leaf (``route``, as
+    :func:`sym_route` gives it) past ``held_d``, the widest x the sweep
+    holds in registers (FULL_HELD_D and its siblings), for the interpreter
+    past INTERP_FULL_WIDTH_D. The sliced block's shared memory does not
+    grow with d, so every d runs. Against the loop over d at full width
+    (D = 0) it ran 1.3-2.1x faster at d = 9 and 10-16x at d = 64 on every
+    sweep, K3 at d = 9 aside (1.5% slower; ``PERF.md`` §7), so no compiled
+    leaf runs D = 0; the interpreter keeps it up to d = 8, where the sliced
+    layout has not been timed."""
+    return d > (held_d if route else INTERP_FULL_WIDTH_D)
+
+
+def _slice_copy(rows: int, d: int, x: torch.Tensor) -> torch.Tensor:
+    """Scratch for the sliced layout's prescaled copy of x: ``rows`` rows of
+    d rounded up to whole slices (filled by the kernel)."""
+    return torch.empty((rows, _round_up(d, X_SLICE)), dtype=torch.float32, device=x.device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _forward_args(program, coef, x):
+    """The library and the program on x's device."""
     from gaussian_process_tpu_torch.ops.cuda import _build
 
     lib = _build.load()
-    smem = smem_bytes(lib)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"d = {x.shape[1]} needs {smem} bytes of shared memory per block")
     prog = _prog_tensor(program, MAX_INSTR, MAX_COEF, coef.numel(), x.device)
     return lib, prog
 
@@ -748,13 +781,16 @@ def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.
                      v: torch.Tensor, *, need_l2: bool) -> torch.Tensor:
     """K(x1, x2) @ v by the full-sweep CUDA kernel, for the postfix
     ``program`` over the coefficient vector ``coef`` (:func:`encode`). Takes
-    centred, contiguous fp32 CUDA tensors x1c (n, d), x2c (m, d), v (m, r);
-    raises on anything else. The product is 3xTF32 on the tensor cores
-    under both ``dot_mode``s (:func:`gram_matvec` says why), in the passes
-    of :func:`full_passes`, with a compiled route for one RBF or Matern
-    leaf (:func:`sym_route`). One call is two device launches (a staging
-    pass that splits V, then the sweep) and counts one. Every output row is
-    written once, so a rerun gives equal bits."""
+    centred, contiguous fp32 CUDA tensors x1c (n, d), x2c (m, d), v (m, r),
+    any d and r; raises on anything else. The product is 3xTF32 on the
+    tensor cores under both ``dot_mode``s (:func:`gram_matvec` says why), in
+    the passes of :func:`full_passes`, with a compiled route for one RBF or
+    Matern leaf (:func:`sym_route`). x is held in registers by a compiled
+    leaf at d <= 4 and read at full width by the interpreter at d <= 8;
+    every other d takes the sliced layout (:func:`sliced_layout`). One call
+    is two device launches (a staging pass that splits V, then the sweep;
+    three sliced, with x1's prescaled copy) and counts one. Every output
+    row is written once, so a rerun gives equal bits."""
     _check_cuda_f32(coef=coef, x1=x1c, x2=x2c, v=v)
     n, d = x1c.shape
     m, r = v.shape
@@ -764,17 +800,19 @@ def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.
     route = sym_route(program)
     passes, width = full_passes(r)
     nt = width // 8
-    lib, prog = _forward_args(program, coef, x1c,
-                              lambda lib: lib.gm_full_tc_smem_bytes(nt, d, route))
+    lib, prog = _forward_args(program, coef, x1c)
+    sliced = int(sliced_layout(route, d, FULL_HELD_D))
     m_pad = _round_up(m, FULL_M_ALIGN)
-    x2s = torch.empty((m_pad, lib.gm_full_tc_x_width(route, d)), dtype=torch.float32,
+    x1s = _slice_copy(_round_up(n, 128), d, x1c) if sliced else None
+    x2s = torch.empty((m_pad, lib.gm_full_tc_x_width(route, d, sliced)), dtype=torch.float32,
                       device=x1c.device)
     vf = torch.empty((passes, m_pad, 2 * width), dtype=torch.float32, device=x1c.device)
     with torch.cuda.device(x1c.device):
         err = lib.gm_matvec_full_tc(
-            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), out.data_ptr(), x2s.data_ptr(),
-            vf.data_ptr(), prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(),
-            route, passes, nt, n, m, m_pad, d, r, int(need_l2), _stream(x1c.device),
+            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(x1s),
+            x2s.data_ptr(), vf.data_ptr(), prog.data_ptr(), len(program), coef.data_ptr(),
+            coef.numel(), route, passes, nt, n, m, m_pad, d, r, int(need_l2), sliced,
+            _stream(x1c.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_full_tc launch failed: cudaError {err}")
@@ -904,20 +942,26 @@ def _sym_items_on_device(n: int, device: torch.device) -> torch.Tensor:
 def matvec_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tensor, *,
                     need_l2: bool) -> torch.Tensor:
     """K(x, x) @ v by the upper-triangle CUDA kernel (centred contiguous
-    fp32 CUDA tensors xc (n, d), v (n, r); ``program`` and ``coef`` as in
-    :func:`matvec_full_cuda`). The route (:func:`sym_route`) and the work
-    items (:func:`sym_schedule`) are chosen here, before the launch; an
+    fp32 CUDA tensors xc (n, d), v (n, r), any d and r; ``program`` and
+    ``coef`` as in :func:`matvec_full_cuda`). The route (:func:`sym_route`),
+    the layout (x in registers for a compiled leaf at d <= 8, at full width
+    for the interpreter at d <= 8, else sliced: :func:`sliced_layout`) and
+    the work items
+    (:func:`sym_schedule`) are chosen here, before the launch; an
     instantiation that fails to build or launch raises. The kernel sums in
     64-bit fixed point (:func:`sym_fixed_point_scales`), so the same inputs
     give the same bits on every run. One call is two device launches (the
-    sweep and its finishing pass) and counts one launch."""
+    sweep and its finishing pass; three sliced, x's prescaled copy first)
+    and counts one launch."""
     _check_cuda_f32(coef=coef, x=xc, v=v)
     n, d = xc.shape
     if v.shape[0] != n:
         raise ValueError(f"v has {v.shape[0]} rows, x has {n}")
     r = v.shape[1]
-    lib, prog = _forward_args(program, coef, xc,
-                              lambda lib: lib.gm_sym_smem_bytes(_sym_pass(r), d))
+    lib, prog = _forward_args(program, coef, xc)
+    route = sym_route(program)
+    sliced = int(sliced_layout(route, d, SYM_HELD_D))
+    xs = _slice_copy(_round_up(n, SYM_TILE), d, xc) if sliced else None
     items = _sym_items_on_device(n, xc.device)
     scale, flag = sym_fixed_point_scales(program, coef, v)
     acc = torch.zeros((n, r), dtype=torch.int64, device=xc.device)
@@ -926,8 +970,8 @@ def matvec_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.Tens
         err = lib.gm_matvec_sym(
             xc.data_ptr(), v.data_ptr(), out.data_ptr(), acc.data_ptr(), flag.data_ptr(),
             scale.data_ptr(), items.data_ptr(), items.shape[0], prog.data_ptr(), len(program),
-            coef.data_ptr(), coef.numel(), sym_route(program),
-            _sym_pass(r), n, d, r, int(need_l2), _stream(xc.device),
+            coef.data_ptr(), coef.numel(), route, _sym_pass(r), n, d, r, int(need_l2),
+            _ptr(xs), sliced, _stream(xc.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_sym launch failed: cudaError {err}")
@@ -970,15 +1014,16 @@ def bwd_full_split(n: int, m: int, resident: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_full_resident(route: int, mma: bool, width: int, d: int, want_dx: bool,
+def _bwd_full_resident(route: int, mma: bool, width: int, d: int, want_dx: bool, sliced: int,
                        device: torch.device) -> int:
     """The blocks of the full backward sweep's instantiation for this plan
-    that the card holds at once (the CUDA occupancy calculator times the
-    SMs), asked once per plan and device."""
+    (its layout included) that the card holds at once (the CUDA occupancy
+    calculator times the SMs), asked once per plan and device."""
     from gaussian_process_tpu_torch.ops.cuda import _build
 
     with torch.cuda.device(device):
-        got = _build.load().gm_bwd_full_resident(route, int(mma), width, d, int(want_dx))
+        got = _build.load().gm_bwd_full_resident(route, int(mma), width, d, int(want_dx),
+                                                 sliced)
     if got <= 0:
         raise RuntimeError(f"gm_bwd_full_resident failed: cudaError {-got}")
     return got
@@ -1004,14 +1049,17 @@ def matvec_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.T
     """The full backward sweep: for L = <ct, K(x1, x2) v>, (dL/dcoef,
     dL/dx1 or None) by the CUDA kernel (``csrc/gram_matvec_bwd.cuh``).
     Centred contiguous fp32 CUDA tensors x1c (n, d), x2c (m, d), v (m, r),
-    ct (n, r), any r; trees up to MAX_BWD_INSTR instructions and
+    ct (n, r), any d and r; trees up to MAX_BWD_INSTR instructions and
     MAX_BWD_COEF coefficients. Chosen here, before the launch: the route
     (:func:`sym_route`: one RBF or Matern leaf compiled on prescaled x), the
     passes and the product for G = ct V^T (:func:`bwd_full_passes`: register
-    FMAs or 3xTF32 MMAs), and the split of the x2 rows over blocks
+    FMAs or 3xTF32 MMAs), the layout (x in registers for a compiled leaf at
+    d <= 4, x2 staged at full width for the interpreter at d <= 8, else
+    sliced: :func:`sliced_layout`), and the split of the x2 rows over blocks
     (:func:`bwd_full_split`, from the blocks the card holds at once). One
     call is two device launches (a staging pass that prescales x2 and
-    stages V, then the sweep) and counts one. The kernel writes float64
+    stages V, then the sweep; three sliced, with x1's prescaled copy) and
+    counts one. The kernel writes float64
     partials of the coefficient sums and fp32 partials of dx per pass and
     split, with no atomics; :func:`bwd_full_finish` sums them in a fixed
     order, so a rerun gives equal bits."""
@@ -1029,13 +1077,12 @@ def matvec_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.T
     lib = _build.load()
     route = sym_route(program)
     passes, width, mma = bwd_full_passes(r)
-    smem = lib.gm_bwd_full_smem_bytes(route, int(mma), width, int(d))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
+    sliced = int(sliced_layout(route, d, BWD_FULL_HELD_D))
     splits = bwd_full_split(n, m, _bwd_full_resident(route, mma, width, int(d), bool(want_dx),
-                                                     x1c.device))
+                                                     sliced, x1c.device))
     m_pad = _round_up(m, BWD_FULL_STAGE)
-    x2s = torch.empty((m_pad, lib.gm_bwd_full_x_width(route, d)), dtype=torch.float32,
+    x1s = _slice_copy(_round_up(n, BWD_FULL_ROWS), d, x1c) if sliced else None
+    x2s = torch.empty((m_pad, lib.gm_bwd_full_x_width(route, d, sliced)), dtype=torch.float32,
                       device=x1c.device)
     vs = torch.empty((passes, m_pad, width * (2 if mma else 1)), dtype=torch.float32,
                      device=x1c.device)
@@ -1046,11 +1093,10 @@ def matvec_bwd_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.T
                       device=x1c.device) if want_dx else None
     with torch.cuda.device(x1c.device):
         err = lib.gm_matvec_bwd(
-            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), ct.data_ptr(), x2s.data_ptr(),
-            vs.data_ptr(), part.data_ptr(), None if pdx is None else pdx.data_ptr(),
-            prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(), route, int(mma),
-            width, passes, splits, n, m, m_pad, d, r, int(need_l2), int(want_dx),
-            _stream(x1c.device),
+            x1c.data_ptr(), x2c.data_ptr(), v.data_ptr(), ct.data_ptr(), _ptr(x1s),
+            x2s.data_ptr(), vs.data_ptr(), part.data_ptr(), _ptr(pdx), prog.data_ptr(),
+            len(program), coef.data_ptr(), coef.numel(), route, int(mma), width, passes, splits,
+            n, m, m_pad, d, r, int(need_l2), int(want_dx), sliced, _stream(x1c.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_bwd launch failed: cudaError {err}")
@@ -1063,10 +1109,12 @@ def matvec_bwd_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.
     """dL/dcoef for L = <ct, K(x, x) v> by the symmetric backward sweep over
     the upper-triangle tiles: the function of :func:`matvec_bwd_cuda` with
     x2 = x1 and no x-gradient. Centred contiguous fp32 CUDA tensors xc
-    (n, d), v and ct (n, r), any r (passes of :func:`bwd_sym_passes`);
+    (n, d), v and ct (n, r), any d and r (passes of :func:`bwd_sym_passes`);
     trees up to MAX_BWD_INSTR instructions and MAX_BWD_COEF coefficients.
-    The route (:func:`sym_route`), the pass width and the work items
-    (:func:`sym_schedule`) are chosen here, before the launch. The kernel
+    The route (:func:`sym_route`), the pass width, the layout (x in
+    registers for a compiled leaf at d <= 8, at full width for the
+    interpreter at d <= 8, else sliced: :func:`sliced_layout`) and the work
+    items (:func:`sym_schedule`) are chosen here, before the launch. The kernel
     writes one float64 partial per pass, work item and sum, with no
     atomics; they are summed here in a fixed order and turned into dL/dcoef
     by :func:`bwd_sym_coef`, so a rerun gives equal bits."""
@@ -1082,10 +1130,9 @@ def matvec_bwd_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.
     prog = _prog_tensor(program, MAX_BWD_INSTR, MAX_BWD_COEF, coef.numel(), xc.device)
     lib = _build.load()
     passes, width = bwd_sym_passes(r)
-    smem = lib.gm_bwd_sym_smem_bytes(width, int(d))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"d = {d} needs {smem} bytes of shared memory per block")
     route = sym_route(program)
+    sliced = int(sliced_layout(route, d, BWD_SYM_HELD_D))
+    xs = _slice_copy(_round_up(n, SYM_TILE), d, xc) if sliced else None
     items = _sym_items_on_device(n, xc.device)
     n_sums = BWD_SYM_LEAF_SUMS if route else MAX_BWD_COEF
     part = torch.empty((passes * items.shape[0], n_sums), dtype=torch.float64,
@@ -1094,7 +1141,7 @@ def matvec_bwd_sym_cuda(program, coef: torch.Tensor, xc: torch.Tensor, v: torch.
         err = lib.gm_matvec_bwd_sym(
             xc.data_ptr(), v.data_ptr(), ct.data_ptr(), part.data_ptr(), items.data_ptr(),
             items.shape[0], prog.data_ptr(), len(program), coef.data_ptr(), coef.numel(),
-            route, width, n, d, r, int(need_l2), _stream(xc.device),
+            route, width, n, d, r, int(need_l2), _ptr(xs), sliced, _stream(xc.device),
         )
     if err != 0:
         raise RuntimeError(f"gm_matvec_bwd_sym launch failed: cudaError {err}")

@@ -502,10 +502,10 @@ def test_full_backward_sweep_every_width_on_card(cuda, name, mma, width):
 @pytest.mark.parametrize("r", [1, 65])
 @pytest.mark.parametrize("d", [200, 254])
 def test_full_backward_sweep_takes_a_wide_d_on_card(cuda, name, r, d):
-    """x1's rows and the dx sums stay out of shared memory at d > 4, so the
-    sweep takes d = 200 and 254 on the widest pass as on the narrowest,
-    cross-set with dx, against the float64 plain VJP. x spreads as
-    10 / sqrt(d), so squared distances are those of d = 4 at spread 5."""
+    """The sweep takes d = 200 and 254 (the sliced layout) on the widest
+    pass as on the narrowest, cross-set with dx, against the float64 plain
+    VJP. x spreads as 10 / sqrt(d), so squared distances are those of d = 4
+    at spread 5."""
     args = _full_bwd_inputs(cuda, name, 700, 301, d, r, d + r, spread=10.0 / np.sqrt(d))
     got, got_dx = kops.matvec_bwd_cuda(*args[:6], need_l2=args[6], want_dx=True)
     _full_bwd_gates(*args, True, got, got_dx)
@@ -918,3 +918,199 @@ def test_full_sweep_is_near_float64_on_card(cuda, tree, d, r):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flag
     assert float((one.double() - want).abs().max()) > limit
+
+
+# Any d: K2, K3 and both K4 sweeps take the sliced layout past the widths
+# at which they hold x in registers (a compiled leaf) or at full width (the
+# interpreter, d <= 8). x spreads as 10 / sqrt(d), so squared distances are
+# those of d = 4 at spread 5; against float64 plain versions.
+WIDE_FAMILIES = ("rbf", "matern52", "co2_no_white")
+
+
+def _wide_inputs(cuda, name, n, m, d, r, seed):
+    return _full_bwd_inputs(cuda, name, n, m, d, r, seed, spread=10.0 / np.sqrt(d))
+
+
+def _wide_forward(cuda, name, n, d, r, seed, sym):
+    """The forward sweep at d: ``(got, want)``, want the float64 plain
+    version on the same fp32 inputs (same set for K3, cross-set for K2)."""
+    program, coef, x1c, x2c, v, _, need_l2 = _wide_inputs(cuda, name, n, None if sym else
+                                                          n // 2 + 3, d, r, seed)
+    kernel, params = SYM_BWD_FAMILIES[name]
+    p64 = convert.params_from_numpy(params, device=cuda, dtype=torch.float64)
+    before = dict(kops.launch_counts)
+    if sym:
+        got = kops.matvec_sym_cuda(program, coef, x1c, v, need_l2=need_l2)
+    else:
+        got = kops.matvec_full_cuda(program, coef, x1c, x2c, v, need_l2=need_l2)
+    torch.cuda.synchronize()
+    key = "gram_matvec_sym" if sym else "gram_matvec_full"
+    assert kops.launch_counts[key] == before[key] + 1
+    want = kops.gram_matvec_reference(kernel, p64, x1c.double(), x2c.double(), v.double(),
+                                      row_chunk=256)
+    return got, want
+
+
+@pytest.mark.parametrize("name", WIDE_FAMILIES)
+@pytest.mark.parametrize("d", [160, 512])
+@pytest.mark.parametrize("sweep,r", [("full", 65), ("full", 512), ("sym", 1), ("sym", 9)])
+def test_forward_sweeps_take_a_wide_d_on_card(cuda, name, d, sweep, r):
+    """K2 (r = 65, 512) and K3 (r = 1, 9) at d = 160 and 512, compiled
+    leaves and the interpreter, within the forward sweeps' 2e-4 x
+    max |plain| of float64."""
+    got, want = _wide_forward(cuda, name, 1500, d, r, d + r, sweep == "sym")
+    assert bool(torch.isfinite(got).all())
+    assert float((got.double() - want).abs().max()) <= 2e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("sweep,r", [("full", 65), ("sym", 9)])
+def test_forward_sweeps_take_d_2048_on_card(cuda, sweep, r):
+    got, want = _wide_forward(cuda, "co2_no_white", 700, 2048, r, r, sweep == "sym")
+    assert float((got.double() - want).abs().max()) <= 2e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", WIDE_FAMILIES)
+@pytest.mark.parametrize("d", [160, 512])
+def test_sym_backward_sweep_takes_a_wide_d_on_card(cuda, name, d):
+    """K4's symmetric sweep at r = 9, d = 160 and 512, against the float64
+    plain VJP: 1e-3 relative per coefficient."""
+    program, coef, xc, _, v, ct, need_l2 = _wide_inputs(cuda, name, 1500, None, d, 9, d)
+    got = kops.matvec_bwd_sym_cuda(program, coef, xc, v, ct, need_l2=need_l2)
+    torch.cuda.synchronize()
+    want, _ = kops.gram_matvec_vjp_reference(program, coef.double(), xc.double(), xc.double(),
+                                             v.double(), ct.double(), need_l2=need_l2,
+                                             want_dx=False)
+    assert float(torch.max(torch.abs(got.double() - want) / torch.abs(want))) <= 1e-3
+
+
+@pytest.mark.parametrize("name", WIDE_FAMILIES)
+@pytest.mark.parametrize("d", [160, 512])
+@pytest.mark.parametrize("r", [3, 9, 65])
+def test_full_backward_sweep_takes_any_d_on_card(cuda, name, d, r):
+    """K4's full sweep cross-set with dx at d = 160 and 512 (sliced), on the
+    FMA pass (r = 3) and the MMA passes (r = 9, 65), against the float64
+    plain VJP: dx takes the sliced layout's second walk over a stage."""
+    args = _wide_inputs(cuda, name, 1100, 701, d, r, d + r)
+    got, got_dx = kops.matvec_bwd_cuda(*args[:6], need_l2=args[6], want_dx=True)
+    torch.cuda.synchronize()
+    _full_bwd_gates(*args, True, got, got_dx)
+
+
+@pytest.mark.parametrize("sweep", ["bwd_sym", "bwd_full"])
+def test_backward_sweeps_take_d_2048_on_card(cuda, sweep):
+    args = _wide_inputs(cuda, "co2_no_white", 600, None if sweep == "bwd_sym" else 333, 2048,
+                        9, 7)
+    if sweep == "bwd_sym":
+        got = kops.matvec_bwd_sym_cuda(args[0], args[1], args[2], args[4], args[5],
+                                       need_l2=args[6])
+        _full_bwd_gates(*args, False, got, None)
+    else:
+        got, got_dx = kops.matvec_bwd_cuda(*args[:6], need_l2=args[6], want_dx=True)
+        _full_bwd_gates(*args, True, got, got_dx)
+
+
+@pytest.mark.parametrize("name", ["rbf", "co2_no_white"])
+def test_wide_d_reruns_give_equal_bits_on_card(cuda, name):
+    """At d = 512 K3 (fixed-point sums) and K4's full sweep (partials, no
+    atomics) give equal bits on a rerun, dx included."""
+    program, coef, x1c, x2c, v, ct, need_l2 = _wide_inputs(cuda, name, 2100, 1300, 512, 9, 8)
+    first = kops.matvec_sym_cuda(program, coef, x1c, ct, need_l2=need_l2)
+    second = kops.matvec_sym_cuda(program, coef, x1c, ct, need_l2=need_l2)
+    g1 = kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct, need_l2=need_l2, want_dx=True)
+    g2 = kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct, need_l2=need_l2, want_dx=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 t rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as the kernels' ``cvt.rna.tf32.f32`` rounds."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("name", ["rbf", "matern52"])
+@pytest.mark.parametrize("sweep,r", [("full", 65), ("full", 512), ("bwd_full", 9),
+                                     ("bwd_full", 65)])
+def test_sliced_sweeps_are_near_float64_on_card(cuda, name, sweep, r):
+    """At d = 512 (the sliced layout) on a compiled leaf, K2 within 2e-5 x
+    max |float64| (the gate of test_full_sweep_is_near_float64_on_card) and
+    K4's full sweep, with dx, within 2e-5 of float64 per coefficient
+    (chip_smoke.py's BWD_TF32_RTOL); a 1xTF32 product of the same fp32
+    inputs misses each gate. x spreads as 10 / sqrt(d) under lengthscale 8,
+    so every entry is about 0.5-0.6: the off-diagonal entries carry Kv and
+    dL/dcoef, and a lost slice (6% of a squared distance) would show."""
+    rng = np.random.default_rng(512 + r)
+    kernel = ops.Matern(nu=2.5) if name == "matern52" else ops.RBF()
+    params = _params({"sigma": 1.0, "lengthscale": 8.0}, cuda)
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=cuda)
+    need_l2 = kops._k.needs_l2(kernel)
+    d, s = 512, 10.0 / np.sqrt(512)
+    assert kops.sliced_layout(kops.sym_route(program), d, kops.BWD_SYM_HELD_D)
+    x1, x2 = (torch.tensor(rng.uniform(-s, s, (n, d)), dtype=torch.float32, device=cuda)
+              for n in (3000, 2500))
+    x1c, x2c = kops._centred(x1, x2)
+    v = torch.tensor(rng.standard_normal((2500, r)), dtype=torch.float32, device=cuda)
+    if sweep == "full":
+        got = kops.matvec_full_cuda(program, coef, x1c, x2c, v, need_l2=need_l2)
+        torch.cuda.synchronize()
+        p64 = kops._k.tree_map_params(lambda a: a.double(), params)
+        K = kops._k.gram(kernel, p64, x1c.double(), x2c.double())
+        want = K @ v.double()
+        limit = 2e-5 * float(want.abs().max())
+        assert float((got.double() - want).abs().max()) <= limit
+        one = _tf32(K.float()).double() @ _tf32(v).double()
+        assert float((one - want).abs().max()) > limit
+        return
+    ct = torch.tensor(rng.standard_normal((3000, r)), dtype=torch.float32, device=cuda)
+    got, got_dx = kops.matvec_bwd_cuda(program, coef, x1c, x2c, v, ct, need_l2=need_l2,
+                                       want_dx=True)
+    torch.cuda.synchronize()
+    _full_bwd_gates(program, coef, x1c, x2c, v, ct, need_l2, True, got, got_dx)
+
+    def vjp(vv, cc):
+        want, _ = kops.gram_matvec_vjp_reference(program, coef.double(), x1c.double(),
+                                                 x2c.double(), vv, cc, need_l2=need_l2,
+                                                 want_dx=False)
+        return want
+
+    want = vjp(v.double(), ct.double())
+    assert float(torch.max(torch.abs(got.double() - want) / torch.abs(want))) <= 2e-5
+    one = vjp(_tf32(v).double(), _tf32(ct).double())
+    assert float(torch.max(torch.abs(one - want) / torch.abs(want))) > 2e-5
+
+
+@pytest.mark.parametrize("kernel_id", ["K1", "K5"])
+def test_tile_gram_and_its_backward_at_d_512_on_card(cuda, kernel_id):
+    """K1 and K5 hold no d-wide tile; at d = 512 they still agree with the
+    float64 plain gram and VJP (K1's gate of test_tile_gram_matches_plain;
+    K5's 1e-3 relative per coefficient and 2e-4 x max |plain| for dx)."""
+    rng = np.random.default_rng(512)
+    kernel, params = SYM_BWD_FAMILIES["co2_no_white"]
+    params = _params(params, cuda)
+    s = 10.0 / np.sqrt(512)
+    x1 = torch.tensor(rng.uniform(-s, s, (700, 512)), dtype=torch.float32, device=cuda)
+    x2 = torch.tensor(rng.uniform(-s, s, (333, 512)), dtype=torch.float32, device=cuda)
+    p64 = kops._k.tree_map_params(lambda a: a.double(), params)
+    if kernel_id == "K1":
+        got = kops.gram(kernel, params, x1, x2)
+        torch.cuda.synchronize()
+        want = kops.gram_reference(kernel, p64, x1.double(), x2.double(), method="diff")
+        err, scale = float((got.double() - want).abs().max()), float(want.abs().max())
+        assert err <= 2e-4 * scale and err < 1e-4 * max(1.0, scale)
+        return
+    program, coefs, white_idx = kops.gram_program(kernel, params, False)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=cuda)
+    x1c, x2c = kops._centred(x1, x2)
+    ct = torch.tensor(rng.standard_normal((700, 333)), dtype=torch.float32, device=cuda)
+    need_l2 = kops._k.needs_l2(kernel)
+    got, got_dx, _ = kops.gram_bwd_cuda(program, coef, x1c, x2c, ct, white_idx=white_idx,
+                                        need_l2=need_l2, want_dx1=True)
+    torch.cuda.synchronize()
+    want, want_dx, _ = kops.gram_vjp_reference(program, coef.double(), x1c.double(),
+                                               x2c.double(), ct.double(), white_idx=white_idx,
+                                               need_l2=need_l2, want_dx1=True)
+    assert float(torch.max(torch.abs(got.double() - want) / torch.abs(want))) <= 1e-3
+    assert float((got_dx.double() - want_dx).abs().max()) <= \
+        2e-4 * float(want_dx.abs().max())
