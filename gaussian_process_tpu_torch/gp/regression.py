@@ -32,6 +32,7 @@ from gaussian_process_tpu_torch.linalg import cholesky as _chol
 from gaussian_process_tpu_torch.linalg import nystrom as _nys
 from gaussian_process_tpu_torch.ops import kernels as _k
 from gaussian_process_tpu_torch.ops.cuda import kernel_ops as _kops
+from gaussian_process_tpu_torch.utils import profiling as _profiling
 
 # largest n for which posterior_cg builds K densely on the GPU (4 GiB in
 # float32, 8 GiB in float64); beyond it only the CUDA matvec may run
@@ -275,67 +276,68 @@ def posterior_cg(
     Runs under ``torch.no_grad()``, as the JAX ``posterior_cg`` is never
     differentiated: serving with trained params records no graph.
     """
-    cfg = _solve_cfg(cfg)
-    if noise_variance is None:
-        noise_variance = cfg.noise_variance
-    if tol is None:
-        tol = cfg.cg_tol
-    if max_iters is None:
-        max_iters = cfg.cg_max_iters
-    x_train = _k._dist._as_2d(x_train)
-    x_test = _k._dist._as_2d(x_test)
-    n = x_train.shape[0]
-    m = x_test.shape[0]
+    with _profiling.span("gp.posterior.query"):
+        cfg = _solve_cfg(cfg)
+        if noise_variance is None:
+            noise_variance = cfg.noise_variance
+        if tol is None:
+            tol = cfg.cg_tol
+        if max_iters is None:
+            max_iters = cfg.cg_max_iters
+        x_train = _k._dist._as_2d(x_train)
+        x_test = _k._dist._as_2d(x_test)
+        n = x_train.shape[0]
+        m = x_test.shape[0]
 
-    k_nw, p_nw, white_var = _k.split_white(kernel, params)
-    shift = noise_variance + (white_var if white_var is not None else 0.0)
+        k_nw, p_nw, white_var = _k.split_white(kernel, params)
+        shift = noise_variance + (white_var if white_var is not None else 0.0)
 
-    if use_kernel is None:
-        use_kernel = _kops.use_matvec_kernel(kernel, x_train)
-    matvec = kernel_operator(k_nw, p_nw, x_train, use_kernel, cg_dot_mode(tol))
-    noisy_mv = lambda v: matvec(v) + shift * v
-    if preconditioner == "auto":
-        preconditioner = "nystrom" if n > 4096 else "jacobi"
-    if precond_rank is None:
-        precond_rank = min(2048, max(512, n // 50))
-    if preconditioner == "nystrom":
-        pre = _nys.make_nystrom_preconditioner(
-            k_nw, p_nw, x_train, shift=shift, rank=precond_rank
+        if use_kernel is None:
+            use_kernel = _kops.use_matvec_kernel(kernel, x_train)
+        matvec = kernel_operator(k_nw, p_nw, x_train, use_kernel, cg_dot_mode(tol))
+        noisy_mv = lambda v: matvec(v) + shift * v
+        if preconditioner == "auto":
+            preconditioner = "nystrom" if n > 4096 else "jacobi"
+        if precond_rank is None:
+            precond_rank = min(2048, max(512, n // 50))
+        if preconditioner == "nystrom":
+            pre = _nys.make_nystrom_preconditioner(
+                k_nw, p_nw, x_train, shift=shift, rank=precond_rank
+            )
+            precond_kwargs = {"precond_apply": pre.apply}
+        elif preconditioner == "jacobi":
+            precond_kwargs = {"precond_diag": _k.gram_diag(k_nw, p_nw, x_train) + shift}
+        elif preconditioner == "none":
+            precond_kwargs = {}
+        else:
+            raise ValueError(f"unknown preconditioner {preconditioner!r}")
+
+        chunk = min(test_chunk, m)
+        kss = _k.gram_diag(kernel, params, x_test)  # full kernel: White counts
+        means, variances = [], []
+        total_iters = 0
+        worst_res = torch.zeros((), dtype=x_train.dtype, device=x_train.device)
+        alpha = None
+        for c0 in range(0, m, chunk):
+            Ks = _kops.gram(k_nw, p_nw, x_train, x_test[c0 : c0 + chunk])  # (n, chunk)
+            rhs = torch.cat([y_train[:, None], Ks], dim=1) if c0 == 0 else Ks
+            state = _cg.cg_solve(
+                noisy_mv, rhs, tol=tol, max_iters=max_iters, **precond_kwargs
+            )
+            U = state.x
+            if c0 == 0:
+                alpha = U[:, 0]
+                U = U[:, 1:]
+            means.append(Ks.T @ alpha)
+            variances.append(kss[c0 : c0 + chunk] - torch.sum(Ks * U, dim=0))
+            total_iters += state.iters
+            worst_res = torch.maximum(worst_res, state.resnorm)
+
+        mean = torch.cat(means)
+        var = torch.clamp(torch.cat(variances), min=0.0)
+        return CGPosterior(
+            mean=mean, var=var, std=torch.sqrt(var), iters=total_iters, resnorm=worst_res
         )
-        precond_kwargs = {"precond_apply": pre.apply}
-    elif preconditioner == "jacobi":
-        precond_kwargs = {"precond_diag": _k.gram_diag(k_nw, p_nw, x_train) + shift}
-    elif preconditioner == "none":
-        precond_kwargs = {}
-    else:
-        raise ValueError(f"unknown preconditioner {preconditioner!r}")
-
-    chunk = min(test_chunk, m)
-    kss = _k.gram_diag(kernel, params, x_test)  # full kernel: White counts
-    means, variances = [], []
-    total_iters = 0
-    worst_res = torch.zeros((), dtype=x_train.dtype, device=x_train.device)
-    alpha = None
-    for c0 in range(0, m, chunk):
-        Ks = _kops.gram(k_nw, p_nw, x_train, x_test[c0 : c0 + chunk])  # (n, chunk)
-        rhs = torch.cat([y_train[:, None], Ks], dim=1) if c0 == 0 else Ks
-        state = _cg.cg_solve(
-            noisy_mv, rhs, tol=tol, max_iters=max_iters, **precond_kwargs
-        )
-        U = state.x
-        if c0 == 0:
-            alpha = U[:, 0]
-            U = U[:, 1:]
-        means.append(Ks.T @ alpha)
-        variances.append(kss[c0 : c0 + chunk] - torch.sum(Ks * U, dim=0))
-        total_iters += state.iters
-        worst_res = torch.maximum(worst_res, state.resnorm)
-
-    mean = torch.cat(means)
-    var = torch.clamp(torch.cat(variances), min=0.0)
-    return CGPosterior(
-        mean=mean, var=var, std=torch.sqrt(var), iters=total_iters, resnorm=worst_res
-    )
 
 
 def posterior_mean_cg(

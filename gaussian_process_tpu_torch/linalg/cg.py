@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from gaussian_process_tpu_torch.ops import kernels as _k
+from gaussian_process_tpu_torch.utils import profiling as _profiling
 
 class CGState(NamedTuple):
     x: torch.Tensor
@@ -59,56 +60,64 @@ def cg_solve(
     direction, preconditioned residual and rz carry over). ``max_new_iters``
     caps the additional iterations of this call (``iters`` counts the total).
     """
-    if dot is None:
-        dot = _colsum_dot
+    with _profiling.span("gp.solvers.cg"):
+        if dot is None:
+            dot = _colsum_dot
 
-    if precond_apply is not None:
-        apply_M = precond_apply
-    elif precond_diag is not None:
-        inv_diag = 1.0 / precond_diag
-        if b.ndim > 1:
-            inv_diag = inv_diag[:, None]
-        apply_M = lambda r: r * inv_diag
-    else:
-        apply_M = lambda r: r
+        if precond_apply is not None:
+            apply_M = precond_apply
+        elif precond_diag is not None:
+            inv_diag = 1.0 / precond_diag
+            if b.ndim > 1:
+                inv_diag = inv_diag[:, None]
+            apply_M = lambda r: r * inv_diag
+        else:
+            apply_M = lambda r: r
 
-    bnorm = float(torch.sqrt(torch.max(dot(b, b))))
-    stop = tol * max(bnorm, 1e-30)
-    iter_cap = max_iters
-    if init_state is not None:
-        s = init_state
-        if max_new_iters is not None:
-            iter_cap = min(iter_cap, s.iters + max_new_iters)
-    else:
-        x = torch.zeros_like(b) if x0 is None else x0
-        r = b - matvec(x) if x0 is not None else b
-        z = apply_M(r)
-        s = CGState(
-            x=x,
-            r=r,
-            p=z,
-            z=z,
-            rz=dot(r, z),
-            iters=0,
-            resnorm=torch.sqrt(torch.max(dot(r, r))),
-        )
-        if max_new_iters is not None:
-            iter_cap = min(iter_cap, max_new_iters)
+        bnorm = float(torch.sqrt(torch.max(dot(b, b))))
+        stop = tol * max(bnorm, 1e-30)
+        iter_cap = max_iters
+        if init_state is not None:
+            s = init_state
+            if max_new_iters is not None:
+                iter_cap = min(iter_cap, s.iters + max_new_iters)
+        else:
+            x = torch.zeros_like(b) if x0 is None else x0
+            r = b - matvec(x) if x0 is not None else b
+            z = apply_M(r)
+            s = CGState(
+                x=x,
+                r=r,
+                p=z,
+                z=z,
+                rz=dot(r, z),
+                iters=0,
+                resnorm=torch.sqrt(torch.max(dot(r, r))),
+            )
+            if max_new_iters is not None:
+                iter_cap = min(iter_cap, max_new_iters)
 
-    # float(nan) > stop is False, so a NaN residual stops the loop, as the
-    # JAX while_loop's condition does
-    while s.iters < iter_cap and float(s.resnorm) > stop:
-        Ap = matvec(s.p)
-        alpha = s.rz / _nonzero(dot(s.p, Ap))
-        x = s.x + alpha * s.p
-        r = s.r - alpha * Ap
-        z = apply_M(r)
-        rz_new = dot(r, z)
-        beta = rz_new / _nonzero(s.rz)
-        p = z + beta * s.p
-        resnorm = torch.sqrt(torch.max(dot(r, r)))
-        s = CGState(x, r, p, z, rz_new, s.iters + 1, resnorm)
-    return s
+        # float(nan) > stop is False, so a NaN residual stops the loop, as the
+        # JAX while_loop's condition does
+        def going(state: CGState) -> bool:
+            return state.iters < iter_cap and float(state.resnorm) > stop
+
+        go = going(s)
+        while go:
+            # one span an iteration, the stop test that ends it (its sync) included
+            with _profiling.span("gp.solvers.cg_iteration"):
+                Ap = matvec(s.p)
+                alpha = s.rz / _nonzero(dot(s.p, Ap))
+                x = s.x + alpha * s.p
+                r = s.r - alpha * Ap
+                z = apply_M(r)
+                rz_new = dot(r, z)
+                beta = rz_new / _nonzero(s.rz)
+                p = z + beta * s.p
+                resnorm = torch.sqrt(torch.max(dot(r, r)))
+                s = CGState(x, r, p, z, rz_new, s.iters + 1, resnorm)
+                go = going(s)
+        return s
 
 
 class _CGSolveGrad(torch.autograd.Function):

@@ -22,6 +22,7 @@ import torch
 
 from gaussian_process_tpu_torch.linalg import cholesky as _chol
 from gaussian_process_tpu_torch.ops import kernels as _k
+from gaussian_process_tpu_torch.utils import profiling as _profiling
 
 
 class NystromPreconditioner(NamedTuple):
@@ -33,11 +34,12 @@ class NystromPreconditioner(NamedTuple):
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         """P^{-1} v via Woodbury; v is (n,) or (n, k). Computed in the
         factor's dtype and returned in v's."""
-        vec = v.ndim == 1
-        vv = (v[:, None] if vec else v).to(self.U.dtype)
-        z = _chol.cholesky_solve(self.chol_G, self.U.T @ vv)
-        out = ((vv - self.U @ z) / self.shift).to(v.dtype)
-        return out[:, 0] if vec else out
+        with _profiling.span("gp.solvers.nystrom_apply"):
+            vec = v.ndim == 1
+            vv = (v[:, None] if vec else v).to(self.U.dtype)
+            z = _chol.cholesky_solve(self.chol_G, self.U.T @ vv)
+            out = ((vv - self.U @ z) / self.shift).to(v.dtype)
+            return out[:, 0] if vec else out
 
 
 def make_nystrom_preconditioner(
@@ -58,14 +60,15 @@ def make_nystrom_preconditioner(
     subset (``generator=None``, deterministic) or a uniform random subset
     drawn with ``generator``. ``row_chunk``: see :func:`make_nystrom_factor`.
     """
-    U, G, idx = make_nystrom_factor(
-        kernel, params, x, rank=rank, generator=generator, jitter=jitter,
-        row_chunk=row_chunk,
-    )
-    shift = torch.as_tensor(shift, dtype=U.dtype, device=U.device)
-    G = G + shift * torch.eye(G.shape[0], dtype=U.dtype, device=U.device)
-    chol_G = _chol.safe_cholesky(G).factor
-    return NystromPreconditioner(U=U, chol_G=chol_G, shift=shift, landmarks=idx)
+    with _profiling.span("gp.solvers.nystrom_build"):
+        U, G, idx = make_nystrom_factor(
+            kernel, params, x, rank=rank, generator=generator, jitter=jitter,
+            row_chunk=row_chunk,
+        )
+        shift = torch.as_tensor(shift, dtype=U.dtype, device=U.device)
+        G = G + shift * torch.eye(G.shape[0], dtype=U.dtype, device=U.device)
+        chol_G = _chol.safe_cholesky(G).factor
+        return NystromPreconditioner(U=U, chol_G=chol_G, shift=shift, landmarks=idx)
 
 
 def make_nystrom_factor(

@@ -65,6 +65,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from gaussian_process_tpu_torch.ops import kernels as _k
+from gaussian_process_tpu_torch.utils import profiling as _profiling
 
 # opcodes: keep in sync with csrc/gram_matvec_common.cuh
 OP_ZERO = 0
@@ -1381,30 +1382,31 @@ def gram_matvec(
     plain version runs under
     both. ``row_chunk`` bounds the plain forward's memory on the CPU.
     """
-    if dot_mode not in DOT_MODES:
-        raise ValueError(f"dot_mode must be one of {DOT_MODES}, got {dot_mode!r}")
-    if not _k.is_stationary(kernel):
-        raise ValueError("gram_matvec supports stationary kernels only")
-    same = x2 is None
-    x1 = _k._dist._as_2d(x1)
-    vec_in = v.ndim == 1
-    vv = v[:, None] if vec_in else v
+    with _profiling.span("gp.kernels.matvec"):
+        if dot_mode not in DOT_MODES:
+            raise ValueError(f"dot_mode must be one of {DOT_MODES}, got {dot_mode!r}")
+        if not _k.is_stationary(kernel):
+            raise ValueError("gram_matvec supports stationary kernels only")
+        same = x2 is None
+        x1 = _k._dist._as_2d(x1)
+        vec_in = v.ndim == 1
+        vv = v[:, None] if vec_in else v
 
-    white_var = None
-    if same:
-        kernel, params, white_var = _k.split_white(kernel, params)
-        if kernel is None:  # pure-White kernel: diagonal matvec
-            out = white_var * vv
-            return out[:, 0] if vec_in else out
-    center = torch.mean(x1, dim=0, keepdim=True).detach()
-    x1c = (x1 - center).contiguous()
-    x2c = x1c if same else (_k._dist._as_2d(x2) - center).contiguous()
-    sym = same and (symmetric if symmetric is not None
-                    else use_symmetric(x1.shape[0], vv.shape[1]))
-    program, coefs = encode(kernel, params)
-    coef = coef_vector(coefs, dtype=x1.dtype, device=x1.device)
-    spec = _Spec(kernel, params, program, _k.needs_l2(kernel), sym, row_chunk)
-    out = _GramMatvecFn.apply(coef, x1c, x2c, vv.contiguous(), spec)
-    if white_var is not None:
-        out = out + white_var * vv
-    return out[:, 0] if vec_in else out
+        white_var = None
+        if same:
+            kernel, params, white_var = _k.split_white(kernel, params)
+            if kernel is None:  # pure-White kernel: diagonal matvec
+                out = white_var * vv
+                return out[:, 0] if vec_in else out
+        center = torch.mean(x1, dim=0, keepdim=True).detach()
+        x1c = (x1 - center).contiguous()
+        x2c = x1c if same else (_k._dist._as_2d(x2) - center).contiguous()
+        sym = same and (symmetric if symmetric is not None
+                        else use_symmetric(x1.shape[0], vv.shape[1]))
+        program, coefs = encode(kernel, params)
+        coef = coef_vector(coefs, dtype=x1.dtype, device=x1.device)
+        spec = _Spec(kernel, params, program, _k.needs_l2(kernel), sym, row_chunk)
+        out = _GramMatvecFn.apply(coef, x1c, x2c, vv.contiguous(), spec)
+        if white_var is not None:
+            out = out + white_var * vv
+        return out[:, 0] if vec_in else out

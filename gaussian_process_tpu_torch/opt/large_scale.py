@@ -34,6 +34,7 @@ from gaussian_process_tpu_torch.linalg import nystrom as _nys
 from gaussian_process_tpu_torch.ops import kernels as _k
 from gaussian_process_tpu_torch.ops.cuda import kernel_ops as _kops
 from gaussian_process_tpu_torch.opt import gradient as _grad
+from gaussian_process_tpu_torch.utils import profiling as _profiling
 
 
 def _make_matvec(kernel, x, noise_variance, use_kernel):
@@ -185,15 +186,16 @@ def tune_large_scale(
     generator = torch.Generator(device=x.device).manual_seed(seed)
     trace, cg_iters = [], []
     for _ in range(steps):
-        opt.zero_grad()
-        value, state = _surrogate(
-            kernel, from_opt(_k.tree_unflatten(params, leaves)), x, y, generator,
-            noise_variance=noise_variance, num_probes=num_probes, cg_tol=cg_tol,
-            cg_max_iters=cg_max_iters, precond_rank=precond_rank, use_kernel=use_kernel,
-        )
-        (-value).backward()
-        opt.step()
-        trace.append(float(value.detach()))
+        with _profiling.span("gp.training.step"):
+            opt.zero_grad()
+            value, state = _surrogate(
+                kernel, from_opt(_k.tree_unflatten(params, leaves)), x, y, generator,
+                noise_variance=noise_variance, num_probes=num_probes, cg_tol=cg_tol,
+                cg_max_iters=cg_max_iters, precond_rank=precond_rank, use_kernel=use_kernel,
+            )
+            (-value).backward()
+            opt.step()
+            trace.append(float(value.detach()))
         cg_iters.append(state.iters)
     final = from_opt(_k.tree_unflatten(params, [leaf.detach() for leaf in leaves]))
     return LargeScaleResult(params=final, lml_trace=torch.tensor(trace, dtype=torch.float64),

@@ -2,9 +2,12 @@
 
 Work on card tensors is timed with CUDA events on the current stream, work
 on CPU tensors with the host clock; which one is read from the tensors a
-call returns (``Stopwatch``: the tensors passed as ``block``). PyTorch
-returns before the card finishes, so a host clock alone would time the
-enqueue.
+call returns. PyTorch returns before the card finishes, so a host clock
+alone would time the enqueue.
+
+The port's hot path opens a :func:`span` at each layer boundary; a
+``torch.profiler`` session (:func:`trace`) records them beside the
+kernels, on the trace's own clock.
 
 The port's only compiled code is its CUDA library, built once per hash of
 its sources (``ops.cuda._build``); :func:`enable_persistent_compile_cache`
@@ -21,10 +24,25 @@ from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-# Annotates a region in a torch.profiler trace (the JAX module's
-# ``jax.named_scope``).
-named_scope = torch.profiler.record_function
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named region of the port's work in a ``torch.profiler`` trace (the
+    JAX module's ``jax.named_scope``): a context manager.
+
+    While a profiler session records, it enters ``record_function(name)``,
+    which lands in the Chrome trace as a ``user_annotation`` event on the
+    clock of the card's kernel, memcpy and memset events; the profiler links
+    each kernel to the host call that launched it, so the kernel's time can
+    be charged to the innermost span open at its launch. Otherwise it costs
+    one check of the profiler's flag and returns a shared no-op context: no
+    dispatcher call, no allocation, no sync."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def enable_persistent_compile_cache(cache_dir: Optional[str] = None) -> None:
@@ -173,30 +191,3 @@ def device_time_chained(
         "repeats": repeats,
         "fixed_overhead_s": max(min(t1s) - per_iter * repeats, 0.0),
     }
-
-
-class Stopwatch:
-    """Accumulating named phase timer. A phase whose ``block`` holds card
-    tensors is timed on CUDA events around it (ending in a synchronise),
-    any other on the host clock."""
-
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str, *, block: Optional[Any] = None):
-        clock = _Clock(_on_card(block))
-        clock.start()
-        try:
-            yield
-        finally:
-            dt = clock.stop()
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {"total_s": self.totals[name], "count": self.counts[name]}
-            for name in self.totals
-        }

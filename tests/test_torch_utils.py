@@ -5,6 +5,7 @@ byte-equal, and a checkpoint written by either package restores in the
 other."""
 
 import filecmp
+import json
 import os
 import pathlib
 
@@ -280,18 +281,17 @@ def test_examples_enable_the_compile_cache_first(example):
 
 
 def test_stopwatch_phases_and_trace(tmp_path):
-    sw = profiling.Stopwatch()
-    for name in ("build", "build", "solve"):
-        with sw.phase(name, block=torch.ones(2)):
-            pass
-    summary = sw.summary()
-    assert summary["build"]["count"] == 2 and summary["solve"]["count"] == 1
-    assert summary["build"]["total_s"] >= 0.0
+    """The phases of a traced block are the port's spans: each lands in
+    ``profiling.trace``'s Chrome trace as a user annotation, once a use."""
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.named_scope("matmul"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
-    assert any(e.key == "matmul" for e in prof.key_averages())
+        for name in ("gp.build", "gp.build", "gp.solve"):
+            with profiling.span(name):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("gp.build") == 2 and names.count("gp.solve") == 1
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts["gp.build"] == 2 and counts["gp.solve"] == 1
 
 
 # ---------------------------------------------------------------- plotting
