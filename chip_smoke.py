@@ -199,7 +199,11 @@ one JSON line:
     dx within 2e-4 x max |plain|), timed with CUDA events beside its bound
     and the plain version's time; the same at d = 9 and 64 (m = 8192 for
     the cross-set K4, each d its own generator ``default_rng([0, 21, d])``);
-    then the
+    K2 on a compiled leaf at d = 8, which holds x in registers (padded to 8
+    coordinates, not sliced), at n = 40000 (r = 65 and 512, kin40k's shape)
+    and n = 16384 (r = 65, beside the d = 9 sliced row), each against its
+    fp32 plain version and timed beside its bound (``default_rng([0, 21,
+    8])``); then the
     paths: ``gp.posterior_cg`` at n = 16384, d = 512, m = 8 and 64 under
     phase 5's residual gate (K3, then K2 launched), and at n = 4096 within
     1e-2 of the exact float64 path; ``GPBinaryClassifier(device="cuda")
@@ -378,6 +382,8 @@ MH_CANDIDATES, MH_LOST = 8, 3
 # blocks of 256 rows
 N_WIDE, D_WIDE, M_WIDE_CROSS, D_WIDE_CLS = 16384, 512, 8192, 100
 D_WIDE_ROWS = (9, 64)
+# K2 on a compiled leaf at d = 8, x in registers: (n, r)
+K2_D8_ROWS = ((40000, 65), (40000, 512), (16384, 65))
 WIDE_K2_R, WIDE_SYM_R, WIDE_CG_M = (65, 512), 9, (8, 64)
 WIDE_VJP_CHUNK = 256
 # the H100 SXM's published peaks: fp32 outside the tensor cores, dense TF32
@@ -516,7 +522,10 @@ def phase_build() -> None:
          # registers and every one that spills
          sliced_max_registers=max((r.get("registers", 0) for r in ptxas if _sliced(r)),
                                   default=None),
-         sliced_spills=[r for r in ptxas if _sliced(r) and r["spill_stores"]])
+         sliced_spills=[r for r in ptxas if _sliced(r) and r["spill_stores"]],
+         # K2's compiled leaves at x width D = 8 (5 <= d <= 8): every one
+         k2_d8_ptxas=[r for r in ptxas if r["kernel"].startswith("matvec_full_tc_kernel<")
+                      and r["kernel"].split(",")[1] == "8"])
 
 
 def _sliced(row: dict) -> bool:
@@ -1818,12 +1827,37 @@ def _wide_kernels(device, gen: np.random.Generator, d: int) -> list:
     return rows
 
 
+def _k2_d8_rows(device, gen: np.random.Generator) -> list:
+    """K2 on a compiled leaf at d = 8 (x in registers) at K2_D8_ROWS against
+    its fp32 plain version, timed, with its bound; no call sliced."""
+    d = 8
+    kernel, params = _case_kernels(device)["rbf"]
+    rows = []
+    for n, r in K2_D8_ROWS:
+        x = torch.tensor(_wide_x(gen, n, d), dtype=torch.float32, device=device)
+        v = torch.tensor(gen.standard_normal((n, r)), dtype=torch.float32, device=device)
+        sliced = kops.launch_counts["gram_matvec_full_sliced"]
+        row, got, want = _wide_timed(lambda: _run("gram_matvec_full", kernel, params, x, v),
+                                     lambda: kops.gram_matvec_reference(kernel, params, x, None,
+                                                                        v, same=True),
+                                     2 if r > 128 else 5)
+        require(kops.launch_counts["gram_matvec_full_sliced"] == sliced,
+                f"K2 at d = {d}, n = {n}, r = {r} held x in registers")
+        err, scale = _max_err(got, want)
+        rows.append({"kernel": "gram_matvec_full", "layout": "registers", "n": n, "d": d,
+                     "r": r, "max_abs_err": err, "max_abs_plain": scale, **row,
+                     **_bound_k2(n, n, d, r)})
+        del x, v, got, want
+    return rows
+
+
 def phase_wide_d(device, gen: np.random.Generator) -> None:
     """The sweeps and the paths at a wide d (module docstring, phase 20)."""
     t0 = time.perf_counter()
     rows = _wide_kernels(device, gen, D_WIDE)
     for d in D_WIDE_ROWS:
         rows += _wide_kernels(device, np.random.default_rng([0, 21, d]), d)
+    rows += _k2_d8_rows(device, np.random.default_rng([0, 21, 8]))
     emit("wide_d_kernels", kernel="RBF(sigma=1, lengthscale=2)", plain="fp32 plain version",
          rows=rows)
 

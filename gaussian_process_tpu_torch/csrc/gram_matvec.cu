@@ -14,11 +14,14 @@
 
 namespace {
 
-// The sweep's x width: X_SLICED for the sliced layout; else 4 for a
-// compiled leaf at d <= 4 (0 above: no such instantiation), 0 (a loop over
-// d, x2 staged at width d) for the interpreter.
+// The sweep's x width: X_SLICED for the sliced layout; else d padded to 4
+// or 8 in registers for a compiled leaf (0 past d = 8: no such
+// instantiation), 0 (a loop over d, x2 staged at width d) for the
+// interpreter.
 int full_x_width(int leaf, int d, int sliced) {
-  return sliced ? X_SLICED : leaf != 0 && d <= 4 ? 4 : 0;
+  if (sliced) return X_SLICED;
+  if (leaf == 0) return 0;
+  return d <= 4 ? 4 : d <= 8 ? 8 : 0;
 }
 
 // The staging pass of the sweep: x2s (m_pad x dx) = x2 times the
@@ -84,7 +87,7 @@ int gm_full_tc_x_width(int leaf, int d, int sliced) {
 // interpreter, else the opcode of the tree's one leaf (RBF or a Matern);
 // passes of nt tiles of 8 columns (kernel_ops.full_passes); sliced: 1 for
 // the sliced layout (any d), 0 for x at full width (a compiled leaf at
-// d <= 4, the interpreter); all chosen by the wrapper. Scratch from the
+// d <= 8, the interpreter); all chosen by the wrapper. Scratch from the
 // caller: x2s (m_pad x gm_full_tc_x_width floats), vf (passes x m_pad x
 // 16 nt floats), m_pad = m rounded up to a multiple of 64, and when sliced
 // x1s (n rounded up to 128 rows x gm_full_tc_x_width floats), else null.

@@ -6,9 +6,10 @@
 // says why). The kernel template lives here so that its instantiations can
 // be compiled in several sources at once:
 // gram_matvec.cu (the interpreted trees and RBF, the staging pass and the
-// launcher), gram_matvec_full_matern.cu (the Matern family), and
-// gram_matvec_full_sliced.cu and gram_matvec_full_sliced_matern.cu (the
-// sliced layout).
+// launcher), gram_matvec_full_matern.cu (the Matern family),
+// gram_matvec_full_d8.cu and gram_matvec_full_d8_matern.cu (the compiled
+// leaves at D = 8), and gram_matvec_full_sliced.cu and
+// gram_matvec_full_sliced_matern.cu (the sliced layout).
 //
 // What bounds it on this card. At n = m = 102400 and r columns (r_pad, r
 // rounded up to a multiple of 8) the product is 3 x 2 n^2 r_pad TF32 MMA
@@ -58,8 +59,11 @@
 //     equal bits.
 //   * Compiled leaves, as in K3 (gram_matvec_common.cuh): one RBF or Matern
 //     leaf is an instantiation with prescaled x (RBF: one ex2 an entry) and
-//     the amplitude applied to the sums; x at width D = 4 in registers for
-//     d <= 4. Every other tree takes the postfix interpreter (LEAF = 0),
+//     the amplitude applied to the sums; x in registers at width D = 4 for
+//     d <= 4 and D = 8 for 5 <= d <= 8, zero past d in x1's registers and in
+//     the staged x2, so the padding adds fma(0, 0, sq) = sq and the squared
+//     distance keeps its bits. Every other tree takes the postfix
+//     interpreter (LEAF = 0),
 //     with x1's rows and the x2 stages at full width in shared memory and d
 //     read in a loop (D = 0), up to d = 8. The wrapper picks the route and
 //     the layout before the launch.
@@ -95,6 +99,11 @@ struct FullArgs {
   int n, m_pad, d, dx, r, nt, need_l2;
 };
 
+// The compiled leaves' instantiations at D = 8: RBF and Matern 1/2
+// (gram_matvec_full_d8.cu), Matern 3/2 and 5/2 (gram_matvec_full_d8_matern.cu).
+cudaError_t gm_full_launch_d8(const FullArgs& a, int leaf, int passes, cudaStream_t st);
+cudaError_t gm_full_launch_d8_matern(const FullArgs& a, int leaf, int passes, cudaStream_t st);
+
 namespace {
 
 constexpr int FULL_ROWS = 128;   // x1 rows of a block
@@ -117,8 +126,18 @@ __host__ __device__ inline size_t full_smem_floats(int d, int dx, int nt) {
          2 * 16 * FULL_STAGE * nt;
 }
 
+// The blocks an SM ptxas is told to fit (0: not told). At D = 8 the
+// instantiations of 6-9 tiles take over 128 registers, so one block an SM
+// in any case; left to itself ptxas stops at 164-168 registers and runs
+// NT = 9's MMAs one dependent chain at a time (79 of 108 HMMAs wait on the
+// one before). Told one block, it keeps the two row tiles' chains apart:
+// r = 65 at n = 40000 7.5 -> 5.7 ms (PERF.md). 12 and 16 tiles take 255
+// registers either way, and told so would spill.
+constexpr int full_min_blocks(int nt, int d) { return d == 8 && nt >= 6 && nt <= 9 ? 1 : 0; }
+
 template <int NT, int D, int LEAF>
-__global__ void __launch_bounds__(THREADS) matvec_full_tc_kernel(FullArgs a) {
+__global__ void __launch_bounds__(THREADS, full_min_blocks(NT, D))
+    matvec_full_tc_kernel(FullArgs a) {
   constexpr int MT = 2;                   // 16-row MMA tiles a warp
   constexpr int WR = FULL_ROWS / (16 * MT);  // row groups of the block
   constexpr int KS = FULL_STAGE / 8 / 2;  // k-steps a k-half takes of each stage
@@ -431,12 +450,13 @@ cudaError_t full_launch_d(const FullArgs& a, int passes, cudaStream_t st) {
   }
 }
 
-// A compiled leaf at x width D (4; the sliced layout is
+// A compiled leaf at x width D (4 or 8; the sliced layout is
 // gm_full_launch_sliced).
 template <int LEAF>
 cudaError_t full_launch_leaf(const FullArgs& a, int passes, int D, cudaStream_t st) {
   switch (D) {
     case 4: return full_launch_d<LEAF, 4>(a, passes, st);
+    case 8: return gm_full_launch_d8(a, LEAF, passes, st);
     default: return cudaErrorInvalidValue;
   }
 }

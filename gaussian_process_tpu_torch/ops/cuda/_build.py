@@ -29,7 +29,8 @@ DEFAULT_BUILD_DIR = PKG_DIR / "_build"
 # utils.profiling.enable_persistent_compile_cache)
 BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("chol_panel.cu", "gram.cu", "gram_bwd.cu", "gram_matvec.cu",
-           "gram_matvec_full_matern.cu", "gram_matvec_full_sliced.cu",
+           "gram_matvec_full_matern.cu", "gram_matvec_full_d8.cu",
+           "gram_matvec_full_d8_matern.cu", "gram_matvec_full_sliced.cu",
            "gram_matvec_full_sliced_matern.cu", "gram_matvec_bwd.cu", "gram_matvec_bwd_rbf.cu",
            "gram_matvec_bwd_matern12.cu", "gram_matvec_bwd_matern32.cu",
            "gram_matvec_bwd_matern52.cu", "gram_matvec_bwd_sliced.cu",

@@ -129,23 +129,25 @@ DOT_MODES = ("split3", "highest")
 FULL_TILES = (1, 2, 3, 4, 5, 6, 8, 9, 12, 16)
 FULL_M_ALIGN = 64
 # the sweeps' layouts of x (sliced_layout): a compiled leaf holds x in
-# registers up to the widest d its sweep compiles (K2 and K4's full sweep
-# 4, K3 and K4's symmetric sweep 8), the interpreter reads x at full width
+# registers up to the widest d its sweep compiles (K4's full sweep 4, K2, K3
+# and K4's symmetric sweep 8), the interpreter reads x at full width
 # from shared memory up to INTERP_FULL_WIDTH_D; past these the sweep stages
 # x X_SLICE coordinates at a time, from a copy whose rows are d rounded up
 # to whole slices (csrc/gram_matvec_slice.cuh)
-FULL_HELD_D, SYM_HELD_D, BWD_SYM_HELD_D, BWD_FULL_HELD_D = 4, 8, 8, 4
+FULL_HELD_D, SYM_HELD_D, BWD_SYM_HELD_D, BWD_FULL_HELD_D = 8, 8, 8, 4
 INTERP_FULL_WIDTH_D = 8
 X_SLICE = 32
 
 # launches of each kernel, counted where the wrapper launches it: "gram"
 # counts every launch of the tile gram, "gram_ad" those made by its
 # differentiable wrapper, "gram_ad_bwd" each launch of its backward,
-# "chol_inv_panel" each call of the panel factor (ops/cuda/chol.py),
-# whatever its count of device launches
+# "gram_matvec_full_sliced" those of K2's calls (all counted in
+# "gram_matvec_full") that took the sliced layout, "chol_inv_panel" each
+# call of the panel factor (ops/cuda/chol.py), whatever its count of device
+# launches
 launch_counts = {"gram": 0, "gram_ad": 0, "gram_ad_bwd": 0, "gram_matvec_full": 0,
-                 "gram_matvec_sym": 0, "gram_matvec_bwd": 0, "gram_matvec_bwd_sym": 0,
-                 "chol_inv_panel": 0}
+                 "gram_matvec_full_sliced": 0, "gram_matvec_sym": 0, "gram_matvec_bwd": 0,
+                 "gram_matvec_bwd_sym": 0, "chol_inv_panel": 0}
 
 
 def reset_launch_counts() -> None:
@@ -603,13 +605,15 @@ def sliced_layout(route: int, d: int, held_d: int) -> bool:
     """Whether a matrix-free sweep (K2, K3, both K4 sweeps) stages x in
     slices of X_SLICE coordinates: for a compiled leaf (``route``, as
     :func:`sym_route` gives it) past ``held_d``, the widest x the sweep
-    holds in registers (FULL_HELD_D and its siblings), for the interpreter
-    past INTERP_FULL_WIDTH_D. The sliced block's shared memory does not
-    grow with d, so every d runs. Against the loop over d at full width
-    (D = 0) it ran 1.3-2.1x faster at d = 9 and 10-16x at d = 64 on every
-    sweep, K3 at d = 9 aside (1.5% slower; ``PERF.md`` §7), so no compiled
-    leaf runs D = 0; the interpreter keeps it up to d = 8, where the sliced
-    layout has not been timed."""
+    holds in registers (FULL_HELD_D and its siblings: 8, or 4 for K4's
+    full sweep), for the interpreter past INTERP_FULL_WIDTH_D. The sliced
+    block's shared memory does not grow with d, so every d runs. Against
+    the loop over d at full width (D = 0) it ran 1.3-2.1x faster at d = 9
+    and 10-16x at d = 64 on every sweep, K3 at d = 9 aside (1.5% slower;
+    ``PERF.md`` §7), so no compiled leaf runs D = 0; the interpreter keeps
+    it up to d = 8, where the sliced layout has not been timed. A held
+    width of 8 spares d = 5-8 a slice that is three quarters zeros or
+    more: K2 at d = 8 ran 2.0x faster held than sliced (``PERF.md`` §6)."""
     return d > (held_d if route else INTERP_FULL_WIDTH_D)
 
 
@@ -787,10 +791,12 @@ def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.
     tensor cores under both ``dot_mode``s (:func:`gram_matvec` says why), in
     the passes of :func:`full_passes`, with a compiled route for one RBF or
     Matern leaf (:func:`sym_route`). x is held in registers by a compiled
-    leaf at d <= 4 and read at full width by the interpreter at d <= 8;
-    every other d takes the sliced layout (:func:`sliced_layout`). One call
-    is two device launches (a staging pass that splits V, then the sweep;
-    three sliced, with x1's prescaled copy) and counts one. Every output
+    leaf at d <= 8 (zero-padded to 4 or 8 coordinates) and read at full
+    width by the interpreter at d <= 8; every other d takes the sliced
+    layout (:func:`sliced_layout`). One call is two device launches (a
+    staging pass that splits V, then the sweep; three sliced, with x1's
+    prescaled copy) and counts one in ``launch_counts["gram_matvec_full"]``,
+    and a sliced one also in ``"gram_matvec_full_sliced"``. Every output
     row is written once, so a rerun gives equal bits."""
     _check_cuda_f32(coef=coef, x1=x1c, x2=x2c, v=v)
     n, d = x1c.shape
@@ -818,6 +824,7 @@ def matvec_full_cuda(program, coef: torch.Tensor, x1c: torch.Tensor, x2c: torch.
     if err != 0:
         raise RuntimeError(f"gm_matvec_full_tc launch failed: cudaError {err}")
     launch_counts["gram_matvec_full"] += 1
+    launch_counts["gram_matvec_full_sliced"] += sliced
     return out
 
 

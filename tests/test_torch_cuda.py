@@ -1081,6 +1081,40 @@ def test_sliced_sweeps_are_near_float64_on_card(cuda, name, sweep, r):
     assert float(torch.max(torch.abs(one - want) / torch.abs(want))) > 2e-5
 
 
+@pytest.mark.parametrize("name", ["rbf", "matern52"])
+@pytest.mark.parametrize("d", [5, 8])
+@pytest.mark.parametrize("r", [1, 65, 512])
+def test_full_sweep_holds_d_8_in_registers_on_card(cuda, name, d, r):
+    """At 5 <= d <= 8 K2 holds a compiled leaf's x in registers, padded
+    with zeros to 8 coordinates, and takes no sliced call: within 2e-5 x
+    max |float64| of the plain version (the gate of
+    test_full_sweep_is_near_float64_on_card), equal bits on a rerun. x
+    spreads as 10 / sqrt(d) under lengthscale 4, so entries are about
+    0.05-0.5 and a lost coordinate would show; x1's rows end inside a
+    128-row block and x2's inside a 64-row stage."""
+    rng = np.random.default_rng(80 + 10 * d + r)
+    kernel = ops.Matern(nu=2.5) if name == "matern52" else ops.RBF()
+    params = _params({"sigma": 1.0, "lengthscale": 4.0}, cuda)
+    program, coefs = kops.encode(kernel, params)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device=cuda)
+    need_l2 = kops._k.needs_l2(kernel)
+    s = 10.0 / np.sqrt(d)
+    x1, x2 = (torch.tensor(rng.uniform(-s, s, (n, d)), dtype=torch.float32, device=cuda)
+              for n in (3001, 2503))
+    x1c, x2c = kops._centred(x1, x2)
+    v = torch.tensor(rng.standard_normal((2503, r)), dtype=torch.float32, device=cuda)
+    before = dict(kops.launch_counts)
+    got = kops.matvec_full_cuda(program, coef, x1c, x2c, v, need_l2=need_l2)
+    again = kops.matvec_full_cuda(program, coef, x1c, x2c, v, need_l2=need_l2)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["gram_matvec_full"] == before["gram_matvec_full"] + 2
+    assert kops.launch_counts["gram_matvec_full_sliced"] == before["gram_matvec_full_sliced"]
+    assert torch.equal(got, again)
+    p64 = kops._k.tree_map_params(lambda a: a.double(), params)
+    want = kops.gram_matvec_reference(kernel, p64, x1c.double(), x2c.double(), v.double())
+    assert float((got.double() - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
 @pytest.mark.parametrize("kernel_id", ["K1", "K5"])
 def test_tile_gram_and_its_backward_at_d_512_on_card(cuda, kernel_id):
     """K1 and K5 hold no d-wide tile; at d = 512 they still agree with the

@@ -21,6 +21,8 @@ spread 5: at the usual spread K would be nearly sigma^2 I and CG would stop
 in one step.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,10 +170,11 @@ def test_large_scale_gradient_matches_jax_at_wide_d(d, monkeypatch):
 
 
 @pytest.mark.parametrize("route,d,held_d,want", [
-    (kops.OP_RBF, 4, kops.FULL_HELD_D, False), (kops.OP_RBF, 5, kops.FULL_HELD_D, True),
+    (kops.OP_RBF, 4, kops.FULL_HELD_D, False), (kops.OP_RBF, 8, kops.FULL_HELD_D, False),
+    (kops.OP_RBF, 9, kops.FULL_HELD_D, True), (kops.OP_MATERN32, 5, kops.FULL_HELD_D, False),
     (kops.OP_MATERN52, 8, kops.SYM_HELD_D, False), (kops.OP_MATERN52, 9, kops.SYM_HELD_D, True),
     (0, 8, kops.BWD_FULL_HELD_D, False), (0, 9, kops.BWD_SYM_HELD_D, True),
-    (kops.OP_RBF, 512, kops.BWD_SYM_HELD_D, True)])
+    (kops.OP_RBF, 5, kops.BWD_FULL_HELD_D, True), (kops.OP_RBF, 512, kops.BWD_SYM_HELD_D, True)])
 def test_layout_is_full_width_where_it_fits(route, d, held_d, want):
     """The wrappers' layout by d: x in registers for a compiled leaf up to
     the widths its sweep compiles, at full width for the interpreter up to
@@ -179,8 +182,40 @@ def test_layout_is_full_width_where_it_fits(route, d, held_d, want):
     assert kops.sliced_layout(route, d, held_d) is want
 
 
+@pytest.mark.parametrize("d,sliced", [(8, 0), (9, 1)])
+def test_full_sweep_counts_its_sliced_calls(d, sliced, monkeypatch):
+    """Every K2 call counts in "gram_matvec_full"; one that the wrapper
+    sends to the sliced layout (a compiled leaf past FULL_HELD_D) counts in
+    "gram_matvec_full_sliced" too. The library is a stub that records the
+    layout it is handed, so the count runs without a card."""
+    handed = []
+
+    class Lib:
+        def gm_full_tc_x_width(self, route, d, sliced):
+            return kops.X_SLICE if sliced else 8
+
+        def gm_matvec_full_tc(self, *args):
+            handed.append(args[-2])  # the layout, before the stream
+            return 0
+
+    counts = dict.fromkeys(kops.launch_counts, 0)
+    monkeypatch.setattr(kops, "launch_counts", counts)
+    monkeypatch.setattr(kops, "_check_cuda_f32", lambda **tensors: None)
+    monkeypatch.setattr(kops, "_forward_args", lambda program, coef, x: (Lib(), x))
+    monkeypatch.setattr(kops, "_stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    p = {"sigma": torch.tensor(1.0), "lengthscale": torch.tensor(2.0)}
+    program, coefs = kops.encode(tk.RBF(), p)
+    coef = kops.coef_vector(coefs, dtype=torch.float32, device="cpu")
+    x = torch.zeros((130, d), dtype=torch.float32)
+    kops.matvec_full_cuda(program, coef, x, x[:70], torch.zeros((70, 65)), need_l2=False)
+    assert handed == [sliced]
+    assert counts == {**dict.fromkeys(counts, 0), "gram_matvec_full": 1,
+                      "gram_matvec_full_sliced": sliced}
+
+
 @pytest.mark.parametrize("source,held_d,rule", [
-    ("gram_matvec.cu", kops.FULL_HELD_D, "leaf != 0 && d <= {0} ? {0} : 0"),
+    ("gram_matvec.cu", kops.FULL_HELD_D, "d <= 4 ? 4 : d <= {0} ? {0} : 0"),
     ("gram_matvec_sym.cu", kops.SYM_HELD_D, "d <= {0} ? {0} : 0"),
     ("gram_matvec_bwd_sym.cu", kops.BWD_SYM_HELD_D, "d <= {0} ? {0} : 0"),
     ("gram_matvec_bwd.cu", kops.BWD_FULL_HELD_D, "leaf != 0 && d <= {0} ? {0} : 0")])
