@@ -89,6 +89,8 @@ def _state_from_numpy(cls, state, device, dtype):
     array's own), iteration counts ints and ``converged`` a bool."""
     fields = {}
     for name in cls._fields:
+        if name in cls._field_defaults and not hasattr(state, name):
+            continue  # a field the source does not record keeps its default
         value = np.array(getattr(state, name))  # a copy: the source may be read-only
         if name in ("iters", "inner_iters"):
             fields[name] = int(value)

@@ -42,6 +42,7 @@ from gaussian_process_tpu_torch.linalg import nystrom as _nys
 from gaussian_process_tpu_torch.ops import kernels as _k
 from gaussian_process_tpu_torch.ops.cuda import kernel_ops as _kops
 from gaussian_process_tpu_torch.opt import large_scale as _ls
+from gaussian_process_tpu_torch.utils import profiling as _profiling
 
 
 class BinaryLaplaceState(NamedTuple):
@@ -90,10 +91,12 @@ def _iterate(step, f, tol, max_iters, err_fn):
     # float(nan) > tol is False: a NaN error stops the loop, as the JAX
     # while_loop's condition does
     while i < max_iters and err > tol:
-        f_new, *extra = step(f)
-        e = err_fn(f_new, f)
-        trace[i] = e
-        err = float(e)
+        # one span a Newton step, the host read of its error included
+        with _profiling.span("gp.laplace.newton_step"):
+            f_new, *extra = step(f)
+            e = err_fn(f_new, f)
+            trace[i] = e
+            err = float(e)
         f = f_new
         i += 1
     return f, extra, i, err, trace
@@ -292,14 +295,16 @@ def woodbury_apply(V: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
     apply cancels by up to the largest eigenvalue of sW K sW, as the
     regression path's Nyström apply does, and in fp32 that apply made CG
     diverge at n = 102400."""
-    r = V.shape[1]
-    G = torch.eye(r, dtype=V.dtype, device=V.device) + V.T @ V
-    chol_G = _chol.safe_cholesky(G).factor
+    with _profiling.span("gp.laplace.precond_build"):
+        r = V.shape[1]
+        G = torch.eye(r, dtype=V.dtype, device=V.device) + V.T @ V
+        chol_G = _chol.safe_cholesky(G).factor
 
     def apply(v):
-        vv = (v[:, None] if v.ndim == 1 else v).to(V.dtype)
-        out = (vv - V @ _chol.cholesky_solve(chol_G, V.T @ vv)).to(v.dtype)
-        return out[:, 0] if v.ndim == 1 else out
+        with _profiling.span("gp.solvers.nystrom_apply"):
+            vv = (v[:, None] if v.ndim == 1 else v).to(V.dtype)
+            out = (vv - V @ _chol.cholesky_solve(chol_G, V.T @ vv)).to(v.dtype)
+            return out[:, 0] if v.ndim == 1 else out
 
     return apply
 
@@ -360,55 +365,58 @@ def laplace_fit_cg(
     (probes from ``lml_generator``) and takes a = K^-1 f from the last
     Newton step, so it runs no extra step.
     """
-    tol, max_iters = _newton_args(tol, max_iters, cfg)
-    x_train = _k._dist._as_2d(x_train)
-    n = x_train.shape[0]
-    Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel,
-                               _reg.cg_dot_mode(cg_tol))
-    if precond_factor is not None:
-        U = precond_factor
-    else:
-        k_nw, p_nw, _ = _k.split_white(kernel, params)
-        U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
-    dt = x_train.dtype
-    y = _labels(y_train, x_train)
-    t = (y + 1.0) / 2.0
-    if tol is None:
-        tol = max(_default_tol(dt), float(cg_tol))
-    inner = 0
+    with _profiling.span("gp.laplace.fit"):
+        tol, max_iters = _newton_args(tol, max_iters, cfg)
+        x_train = _k._dist._as_2d(x_train)
+        n = x_train.shape[0]
+        Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel,
+                                   _reg.cg_dot_mode(cg_tol))
+        if precond_factor is not None:
+            U = precond_factor
+        else:
+            k_nw, p_nw, _ = _k.split_white(kernel, params)
+            with _profiling.span("gp.solvers.nystrom_build"):
+                U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train,
+                                                   rank=min(precond_rank, n))
+        dt = x_train.dtype
+        y = _labels(y_train, x_train)
+        t = (y + 1.0) / 2.0
+        if tol is None:
+            tol = max(_default_tol(dt), float(cg_tol))
+        inner = 0
 
-    def newton_step(f):
-        nonlocal inner
+        def newton_step(f):
+            nonlocal inner
+            pi = torch.sigmoid(f)
+            w = pi * (1.0 - pi)
+            sw = torch.sqrt(w)
+            b = w * f + (t - pi)
+            st = _cg.cg_solve(_b_matvec(Kmv, sw), sw * Kmv(b), tol=cg_tol,
+                              max_iters=cg_max_iters,
+                              precond_apply=woodbury_apply(sw.to(U.dtype)[:, None] * U))
+            inner += st.iters
+            a = b - sw * st.x
+            return Kmv(a), a
+
+        f0 = torch.zeros(n, dtype=dt, device=x_train.device) if f_init is None else _labels(
+            f_init, x_train)
+        f, extra, iters, err, trace = _iterate(newton_step, f0, tol, max_iters, _rel_step)
         pi = torch.sigmoid(f)
-        w = pi * (1.0 - pi)
-        sw = torch.sqrt(w)
-        b = w * f + (t - pi)
-        st = _cg.cg_solve(_b_matvec(Kmv, sw), sw * Kmv(b), tol=cg_tol,
-                          max_iters=cg_max_iters,
-                          precond_apply=woodbury_apply(sw.to(U.dtype)[:, None] * U))
-        inner += st.iters
-        a = b - sw * st.x
-        return Kmv(a), a
-
-    f0 = torch.zeros(n, dtype=dt, device=x_train.device) if f_init is None else _labels(
-        f_init, x_train)
-    f, extra, iters, err, trace = _iterate(newton_step, f0, tol, max_iters, _rel_step)
-    pi = torch.sigmoid(f)
-    sw = torch.sqrt(pi * (1.0 - pi))
-    if compute_lml:
-        # f = K a from the last step, so a = K^-1 f with no further solve
-        a = extra[0] if extra else newton_step(f)[1]
-        logdet_B = _ls.slq_logdet_matvec(
-            _b_matvec(Kmv, sw), n, _lml_generator(lml_generator, x_train.device),
-            num_probes=lml_probes, lanczos_iters=lml_lanczos_iters, dtype=dt,
-            device=x_train.device,
-        )
-        lml = -0.5 * torch.dot(a, f) + _log_sigmoid_likelihood(y, f) - 0.5 * logdet_B
-    else:
-        lml = torch.tensor(float("nan"), dtype=dt, device=x_train.device)
-    return BinaryLaplaceCGState(f_mode=f, grad_at_mode=t - pi, sqrt_w=sw, U=U, lml=lml,
-                                iters=iters, inner_iters=inner, converged=err <= tol,
-                                error_trace=trace)
+        sw = torch.sqrt(pi * (1.0 - pi))
+        if compute_lml:
+            # f = K a from the last step, so a = K^-1 f with no further solve
+            a = extra[0] if extra else newton_step(f)[1]
+            logdet_B = _ls.slq_logdet_matvec(
+                _b_matvec(Kmv, sw), n, _lml_generator(lml_generator, x_train.device),
+                num_probes=lml_probes, lanczos_iters=lml_lanczos_iters, dtype=dt,
+                device=x_train.device,
+            )
+            lml = -0.5 * torch.dot(a, f) + _log_sigmoid_likelihood(y, f) - 0.5 * logdet_B
+        else:
+            lml = torch.tensor(float("nan"), dtype=dt, device=x_train.device)
+        return BinaryLaplaceCGState(f_mode=f, grad_at_mode=t - pi, sqrt_w=sw, U=U, lml=lml,
+                                    iters=iters, inner_iters=inner, converged=err <= tol,
+                                    error_trace=trace)
 
 
 @torch.no_grad()
@@ -445,7 +453,8 @@ def laplace_fit_cg_segmented(
     if tol is None:
         tol = _default_tol(x_train.dtype)
     k_nw, p_nw, _ = _k.split_white(kernel, params)
-    U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
+    with _profiling.span("gp.solvers.nystrom_build"):
+        U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
     f = (torch.zeros(n, dtype=x_train.dtype, device=x_train.device) if resume_f is None
          else _labels(resume_f, x_train))
     total = inner_total = 0
@@ -498,22 +507,23 @@ def predict_binary_cg(
     of K_s is a cross-gram from the tile gram.
     [ref: GP_binary_classification.py:136-154]
     """
-    x_train = _k._dist._as_2d(x_train)
-    x_test = _k._dist._as_2d(x_test)
-    m = x_test.shape[0]
-    Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel,
-                               _reg.cg_dot_mode(cg_tol))
-    sw = state.sqrt_w
-    Bmv = _b_matvec(Kmv, sw)
-    apply = woodbury_apply(sw.to(state.U.dtype)[:, None] * state.U)
-    kss = _k.gram_diag(kernel, params, x_test)
-    chunk = min(test_chunk, m)
-    means, variances = [], []
-    for c0 in range(0, m, chunk):
-        Ks = _kops.gram(kernel, params, x_train, x_test[c0:c0 + chunk])  # (n, chunk)
-        means.append(Ks.T @ state.grad_at_mode)
-        rhs = sw[:, None] * Ks
-        st = _cg.cg_solve(Bmv, rhs, tol=cg_tol, max_iters=cg_max_iters, precond_apply=apply)
-        variances.append(kss[c0:c0 + chunk] - torch.sum(rhs * st.x, dim=0))
-    var = torch.clamp(torch.cat(variances), min=0.0)
-    return _prediction(torch.cat(means), var)
+    with _profiling.span("gp.laplace.predict"):
+        x_train = _k._dist._as_2d(x_train)
+        x_test = _k._dist._as_2d(x_test)
+        m = x_test.shape[0]
+        Kmv = _reg.kernel_operator(kernel, params, x_train, use_kernel,
+                                   _reg.cg_dot_mode(cg_tol))
+        sw = state.sqrt_w
+        Bmv = _b_matvec(Kmv, sw)
+        apply = woodbury_apply(sw.to(state.U.dtype)[:, None] * state.U)
+        kss = _k.gram_diag(kernel, params, x_test)
+        chunk = min(test_chunk, m)
+        means, variances = [], []
+        for c0 in range(0, m, chunk):
+            Ks = _kops.gram(kernel, params, x_train, x_test[c0:c0 + chunk])  # (n, chunk)
+            means.append(Ks.T @ state.grad_at_mode)
+            rhs = sw[:, None] * Ks
+            st = _cg.cg_solve(Bmv, rhs, tol=cg_tol, max_iters=cg_max_iters, precond_apply=apply)
+            variances.append(kss[c0:c0 + chunk] - torch.sum(rhs * st.x, dim=0))
+        var = torch.clamp(torch.cat(variances), min=0.0)
+        return _prediction(torch.cat(means), var)

@@ -21,7 +21,7 @@ Loops run under ``torch.no_grad()``, as in ``gp.classification``.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +34,7 @@ from gaussian_process_tpu_torch.linalg import nystrom as _nys
 from gaussian_process_tpu_torch.ops import kernels as _k
 from gaussian_process_tpu_torch.ops.cuda import kernel_ops as _kops
 from gaussian_process_tpu_torch.opt import large_scale as _ls
+from gaussian_process_tpu_torch.utils import profiling as _profiling
 
 
 class MulticlassLaplaceState(NamedTuple):
@@ -205,6 +206,10 @@ class MulticlassLaplaceCGState(NamedTuple):
     inner_iters: int  # total CG iterations across Newton steps
     converged: bool
     error_trace: torch.Tensor
+    # each Newton step's CG iterations, summing to inner_iters; a step that
+    # reached cg_max_iters stopped at its cap, not by cg_tol. Empty for a
+    # state converted from one that did not record them
+    cg_iters: Tuple[int, ...] = ()
 
 
 def _w_blocks(pi: torch.Tensor) -> torch.Tensor:
@@ -224,13 +229,14 @@ def _w_sqrt_blocks(pi: torch.Tensor) -> torch.Tensor:
     """Per-point PSD square roots of W (n, C, C): n batched (C, C) eigh's in
     batches of ``EIGH_BATCH``, O(n C^3), trivial next to one kernel
     matvec."""
-    W = _w_blocks(pi)
-    roots = []
-    for i in range(0, W.shape[0], EIGH_BATCH):
-        evals, evecs = torch.linalg.eigh(W[i:i + EIGH_BATCH])
-        root = torch.sqrt(torch.clamp(evals, min=0.0))
-        roots.append((evecs * root[:, None, :]) @ evecs.mT)
-    return torch.cat(roots)
+    with _profiling.span("gp.laplace.w_roots"):
+        W = _w_blocks(pi)
+        roots = []
+        for i in range(0, W.shape[0], EIGH_BATCH):
+            evals, evecs = torch.linalg.eigh(W[i:i + EIGH_BATCH])
+            root = torch.sqrt(torch.clamp(evals, min=0.0))
+            roots.append((evecs * root[:, None, :]) @ evecs.mT)
+        return torch.cat(roots)
 
 
 def _w_half_apply(S: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -250,23 +256,25 @@ def _coupled_woodbury(pi: torch.Tensor, S: torch.Tensor, U: torch.Tensor):
     C = pi.shape[0]
     r = U.shape[1]
     dt = U.dtype
-    Wm = _w_blocks(pi.to(dt))
-    G = torch.eye(C * r, dtype=dt, device=U.device)
-    for c in range(C):
-        for d in range(c, C):
-            block = U.T @ (Wm[:, c, d, None] * U)
-            G[c * r:(c + 1) * r, d * r:(d + 1) * r] += block
-            if d != c:
-                G[d * r:(d + 1) * r, c * r:(c + 1) * r] += block.T
-    chol_G = _chol.safe_cholesky(G).factor
-    S64 = S.to(dt)
+    with _profiling.span("gp.laplace.precond_build"):
+        Wm = _w_blocks(pi.to(dt))
+        G = torch.eye(C * r, dtype=dt, device=U.device)
+        for c in range(C):
+            for d in range(c, C):
+                block = U.T @ (Wm[:, c, d, None] * U)
+                G[c * r:(c + 1) * r, d * r:(d + 1) * r] += block
+                if d != c:
+                    G[d * r:(d + 1) * r, c * r:(c + 1) * r] += block.T
+        chol_G = _chol.safe_cholesky(G).factor
+        S64 = S.to(dt)
 
     def apply(u_flat):
-        u = u_flat.reshape(C, -1).to(dt)
-        w = _w_half_apply(S64, u) @ U  # (C, r)
-        z = _chol.cholesky_solve(chol_G, w.reshape(C * r)).reshape(C, r)
-        out = u - _w_half_apply(S64, z @ U.T)
-        return out.reshape(-1).to(u_flat.dtype)
+        with _profiling.span("gp.solvers.nystrom_apply"):
+            u = u_flat.reshape(C, -1).to(dt)
+            w = _w_half_apply(S64, u) @ U  # (C, r)
+            z = _chol.cholesky_solve(chol_G, w.reshape(C * r)).reshape(C, r)
+            out = u - _w_half_apply(S64, z @ U.T)
+            return out.reshape(-1).to(u_flat.dtype)
 
     return apply
 
@@ -317,52 +325,54 @@ def laplace_fit_multiclass_cg(
     at ``cg_tol``; ``compute_lml`` estimates the stacked logdet by SLQ and
     takes a = K^-1 f from the last Newton step (no extra step).
     """
-    tol, max_iters = _cls._newton_args(tol, max_iters, cfg)
-    x_train = _k._dist._as_2d(x_train)
-    n = x_train.shape[0]
-    C = int(num_classes)
-    Kmv_cols = _reg.kernel_operator(kernel, params, x_train, use_kernel,
-                                    _reg.cg_dot_mode(cg_tol))
-    Kmv = lambda u: Kmv_cols(u.T).T  # noqa: E731  (C, n) -> (C, n), one sweep
-    k_nw, p_nw, _ = _k.split_white(kernel, params)
-    U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
-    dt = x_train.dtype
-    y = one_hot_targets(y_labels, C, dtype=dt).to(x_train.device)
-    if tol is None:
-        tol = max(_cls._default_tol(dt), float(cg_tol))
-    inner = 0
+    with _profiling.span("gp.laplace.fit"):
+        tol, max_iters = _cls._newton_args(tol, max_iters, cfg)
+        x_train = _k._dist._as_2d(x_train)
+        n = x_train.shape[0]
+        C = int(num_classes)
+        Kmv_cols = _reg.kernel_operator(kernel, params, x_train, use_kernel,
+                                        _reg.cg_dot_mode(cg_tol))
+        Kmv = lambda u: Kmv_cols(u.T).T  # noqa: E731  (C, n) -> (C, n), one sweep
+        k_nw, p_nw, _ = _k.split_white(kernel, params)
+        with _profiling.span("gp.solvers.nystrom_build"):
+            U, _, _ = _nys.make_nystrom_factor(k_nw, p_nw, x_train, rank=min(precond_rank, n))
+        dt = x_train.dtype
+        y = one_hot_targets(y_labels, C, dtype=dt).to(x_train.device)
+        if tol is None:
+            tol = max(_cls._default_tol(dt), float(cg_tol))
+        cg_iters = []
 
-    def newton_step(f):
-        nonlocal inner
+        def newton_step(f):
+            pi = torch.softmax(f, dim=0)
+            S = _w_sqrt_blocks(pi)
+            b = _w_apply(pi, f) + y - pi
+            rhs = _w_half_apply(S, Kmv(b)).reshape(C * n)
+            st = _cg.cg_solve(_stacked_b(Kmv, S, C), rhs, tol=cg_tol, max_iters=cg_max_iters,
+                              precond_apply=_coupled_woodbury(pi, S, U))
+            cg_iters.append(st.iters)
+            a = b - _w_half_apply(S, st.x.reshape(C, n))
+            return Kmv(a), a
+
+        f0 = torch.zeros((C, n), dtype=dt, device=x_train.device) if f_init is None else \
+            torch.as_tensor(f_init).to(device=x_train.device, dtype=dt)
+        f, extra, iters, err, trace = _cls._iterate(newton_step, f0, tol, max_iters,
+                                                    _cls._rel_step)
         pi = torch.softmax(f, dim=0)
-        S = _w_sqrt_blocks(pi)
-        b = _w_apply(pi, f) + y - pi
-        rhs = _w_half_apply(S, Kmv(b)).reshape(C * n)
-        st = _cg.cg_solve(_stacked_b(Kmv, S, C), rhs, tol=cg_tol, max_iters=cg_max_iters,
-                          precond_apply=_coupled_woodbury(pi, S, U))
-        inner += st.iters
-        a = b - _w_half_apply(S, st.x.reshape(C, n))
-        return Kmv(a), a
-
-    f0 = torch.zeros((C, n), dtype=dt, device=x_train.device) if f_init is None else \
-        torch.as_tensor(f_init).to(device=x_train.device, dtype=dt)
-    f, extra, iters, err, trace = _cls._iterate(newton_step, f0, tol, max_iters,
-                                                _cls._rel_step)
-    pi = torch.softmax(f, dim=0)
-    if compute_lml:
-        # f = K a from the last step, so a = K^-1 f with no further solve
-        a = extra[0] if extra else newton_step(f)[1]
-        logdet_B = _ls.slq_logdet_matvec(
-            _stacked_b(Kmv, _w_sqrt_blocks(pi), C), C * n,
-            _cls._lml_generator(lml_generator, x_train.device), num_probes=lml_probes,
-            lanczos_iters=lml_lanczos_iters, dtype=dt, device=x_train.device,
-        )
-        # R&W 3.44 with log|I + W^{1/2} K W^{1/2}| estimated by SLQ
-        lml = _logsumexp_lml(a, f, y) - 0.5 * logdet_B
-    else:
-        lml = torch.tensor(float("nan"), dtype=dt, device=x_train.device)
-    return MulticlassLaplaceCGState(f_mode=f, pi=pi, lml=lml, iters=iters, inner_iters=inner,
-                                    converged=err <= tol, error_trace=trace)
+        if compute_lml:
+            # f = K a from the last step, so a = K^-1 f with no further solve
+            a = extra[0] if extra else newton_step(f)[1]
+            logdet_B = _ls.slq_logdet_matvec(
+                _stacked_b(Kmv, _w_sqrt_blocks(pi), C), C * n,
+                _cls._lml_generator(lml_generator, x_train.device), num_probes=lml_probes,
+                lanczos_iters=lml_lanczos_iters, dtype=dt, device=x_train.device,
+            )
+            # R&W 3.44 with log|I + W^{1/2} K W^{1/2}| estimated by SLQ
+            lml = _logsumexp_lml(a, f, y) - 0.5 * logdet_B
+        else:
+            lml = torch.tensor(float("nan"), dtype=dt, device=x_train.device)
+        return MulticlassLaplaceCGState(f_mode=f, pi=pi, lml=lml, iters=iters,
+                                        inner_iters=sum(cg_iters), converged=err <= tol,
+                                        error_trace=trace, cg_iters=tuple(cg_iters))
 
 
 class MulticlassPrediction(NamedTuple):
@@ -393,14 +403,15 @@ def predict_multiclass_cg(
     [ref: GP_multi_classification.py:179-197], which needs cross-gram
     chunks (the tile gram on fp32 CUDA inputs), never a solve:
     O(n * test_chunk) memory."""
-    x_train = _k._dist._as_2d(x_train)
-    x_test = _k._dist._as_2d(x_test)
-    y = one_hot_targets(y_labels, num_classes, dtype=state.f_mode.dtype).to(x_train.device)
-    resid = y - state.pi  # (C, n)
-    chunk = min(test_chunk, x_test.shape[0])
-    means = [resid @ _kops.gram(kernel, params, x_train, x_test[c0:c0 + chunk])
-             for c0 in range(0, x_test.shape[0], chunk)]
-    return _prediction(torch.cat(means, dim=1))
+    with _profiling.span("gp.laplace.predict"):
+        x_train = _k._dist._as_2d(x_train)
+        x_test = _k._dist._as_2d(x_test)
+        y = one_hot_targets(y_labels, num_classes, dtype=state.f_mode.dtype).to(x_train.device)
+        resid = y - state.pi  # (C, n)
+        chunk = min(test_chunk, x_test.shape[0])
+        means = [resid @ _kops.gram(kernel, params, x_train, x_test[c0:c0 + chunk])
+                 for c0 in range(0, x_test.shape[0], chunk)]
+        return _prediction(torch.cat(means, dim=1))
 
 
 def laplace_predict_multiclass(

@@ -245,19 +245,33 @@ class _Classifier:
     def _to_device(self, x) -> torch.Tensor:
         return _as_tensor(x, self.device, like=self.x_train)
 
-    def _store(self, x, solver: str) -> str:
+    def _store(self, x, solver: str, cg_tol, cg_max_iters):
         """Keep the training points and their params on the device; the
-        solver "auto" resolves to "cg" above ``AUTO_CG_N`` points."""
+        solver "auto" resolves to "cg" above ``AUTO_CG_N`` points. Returns
+        the solver and the CG options of the matrix-free fit, defaults
+        filled in (tolerance 1e-6, cap 200); the Cholesky route runs no CG,
+        so it refuses either option rather than drop it, before anything
+        is stored."""
         if solver not in ("auto", "cg", "cholesky"):
             raise ValueError(f"unknown solver {solver!r}")
         _check_device(self.device)
-        self.x_train = _as_tensor(x, self.device)
+        x_train = _as_tensor(x, self.device)
+        if solver == "auto":
+            solver = "cg" if x_train.shape[0] > AUTO_CG_N else "cholesky"
+        if solver == "cg":
+            cg_args = {"cg_tol": 1e-6 if cg_tol is None else cg_tol,
+                       "cg_max_iters": 200 if cg_max_iters is None else cg_max_iters}
+        elif cg_tol is not None or cg_max_iters is not None:
+            raise ValueError(
+                "cg_tol and cg_max_iters set the matrix-free fit's CG; the Cholesky route "
+                f"(solver='cholesky', or 'auto' up to n = {AUTO_CG_N}) runs no CG")
+        else:
+            cg_args = {}
+        self.x_train = x_train
         self.device = self.x_train.device
         self.params = _convert.params_from_numpy(self.params, device=self.device)
-        if solver == "auto":
-            solver = "cg" if self.x_train.shape[0] > AUTO_CG_N else "cholesky"
         self._solver = solver
-        return solver
+        return solver, cg_args
 
     def _check_fitted(self):
         if self.state is None:
@@ -292,15 +306,18 @@ class GPBinaryClassifier(_Classifier):
         super().__init__(kernel, params, dist_method, device)
 
     def fit(self, x, y, *, tol=None, max_iters: int = 100, solver: str = "auto",
-            precond_rank: int = 512) -> "GPBinaryClassifier":
+            precond_rank: int = 512, cg_tol: Optional[float] = None,
+            cg_max_iters: Optional[int] = None) -> "GPBinaryClassifier":
         """``solver``: "cholesky" (dense Newton), "cg" (matrix-free Newton,
-        ``gp.laplace_fit_cg``), or "auto" (cg above n = 32768)."""
-        solver = self._store(x, solver)
+        ``gp.laplace_fit_cg``), or "auto" (cg above n = 32768). ``cg_tol``
+        and ``cg_max_iters``: each Newton step's CG tolerance and cap on the
+        cg route (default 1e-6 and 200); the Cholesky route refuses them."""
+        solver, cg_args = self._store(x, solver, cg_tol, cg_max_iters)
         y = self._to_device(y)
         if solver == "cg":
             self.state = _cls.laplace_fit_cg(
                 self.kernel, self.params, self.x_train, y, tol=tol, max_iters=max_iters,
-                precond_rank=precond_rank,
+                precond_rank=precond_rank, **cg_args,
             )
         else:
             self.state = _cls.fit_binary(
@@ -346,16 +363,19 @@ class GPMulticlassClassifier(_Classifier):
         self.y_labels = None
 
     def fit(self, x, y_labels, *, tol=None, max_iters: int = 100, solver: str = "auto",
-            precond_rank: int = 512) -> "GPMulticlassClassifier":
+            precond_rank: int = 512, cg_tol: Optional[float] = None,
+            cg_max_iters: Optional[int] = None) -> "GPMulticlassClassifier":
         """``solver``: "cholesky" (per-class dense factorizations), "cg"
         (matrix-free stacked-system Newton, ``gp.laplace_fit_multiclass_cg``),
-        or "auto" (cg above n = 32768)."""
-        solver = self._store(x, solver)
+        or "auto" (cg above n = 32768). ``cg_tol`` and ``cg_max_iters``: each
+        Newton step's CG tolerance and cap on the cg route (default 1e-6 and
+        200); the Cholesky route refuses them."""
+        solver, cg_args = self._store(x, solver, cg_tol, cg_max_iters)
         self.y_labels = self._to_device(y_labels)
         if solver == "cg":
             self.state = _mc.laplace_fit_multiclass_cg(
                 self.kernel, self.params, self.x_train, self.y_labels, self.num_classes,
-                tol=tol, max_iters=max_iters, precond_rank=precond_rank,
+                tol=tol, max_iters=max_iters, precond_rank=precond_rank, **cg_args,
             )
         else:
             self.state = _mc.fit_multiclass(

@@ -1,7 +1,8 @@
 """The port's spans (``utils.profiling.span``) on the CPU: off, they never
-reach the profiler; under ``torch.profiler`` a posterior query and a
-training step emit them once per unit of work, nested as the layers are,
-and the answers are the same bits with the profiler on and off."""
+reach the profiler; under ``torch.profiler`` a posterior query, a training
+step and a Laplace fit and prediction emit them once per unit of work,
+nested as the layers are, and the answers are the same bits with the
+profiler on and off."""
 
 import json
 
@@ -11,6 +12,8 @@ import torch
 from gaussian_process_tpu_torch import convert
 from gaussian_process_tpu_torch import gp as tgp
 from gaussian_process_tpu_torch import ops as tops
+from gaussian_process_tpu_torch.models.estimators import (GPBinaryClassifier,
+                                                          GPMulticlassClassifier)
 from gaussian_process_tpu_torch.opt import large_scale as ls
 from gaussian_process_tpu_torch.utils import profiling
 
@@ -132,3 +135,81 @@ def test_answers_are_the_same_bits_traced_and_not(tmp_path):
     for k in PARAMS:
         assert torch.equal(res.params[k], plain_res.params[k])
 
+
+
+def _classes(n=240, seed=3):
+    x, _, xs = _problem(n=n, seed=seed)
+    angle = torch.atan2(x[:, 1], x[:, 0])
+    labels = torch.floor((angle + np.pi) / (2 * np.pi) * 3).long() % 3
+    return x, labels, xs
+
+
+def _multiclass(x, labels, xs):
+    model = GPMulticlassClassifier(tops.RBF(), 3, dict(PARAMS), device="cpu").fit(
+        x, labels, solver="cg", cg_tol=1e-8, precond_rank=32)
+    return model.state, model.predict_proba(xs)
+
+
+def _by_name(spans):
+    by = {}
+    for s in spans:
+        by.setdefault(s[0], []).append(s)
+    return by
+
+
+def test_a_multiclass_fit_and_prediction_nest_their_spans(tmp_path):
+    x, labels, xs = _classes()
+    (st, _), spans = _spans(tmp_path, lambda: _multiclass(x, labels, xs))
+    by = _by_name(spans)
+    (fit,) = by["gp.laplace.fit"]
+    (predict,) = by["gp.laplace.predict"]
+    assert fit[3] is None and predict[3] is None and not _inside(spans, predict)
+    # the fit's one Nyström factor, then one span a Newton step
+    assert [s[3] for s in by["gp.solvers.nystrom_build"]] == ["gp.laplace.fit"]
+    steps = by["gp.laplace.newton_step"]
+    assert len(steps) == st.iters > 1 and all(s[3] == "gp.laplace.fit" for s in steps)
+    for step, iters in zip(steps, st.cg_iters):
+        inside = _inside(spans, step)
+        children = [s[0] for s in inside if s[3] == "gp.laplace.newton_step"]
+        assert children == ["gp.laplace.w_roots", "gp.laplace.precond_build", "gp.solvers.cg"]
+        names = [s[0] for s in inside]
+        assert names.count("gp.solvers.cg_iteration") == iters > 0
+        # one apply before the loop, then one an iteration, inside it
+        applies = [s[3] for s in inside if s[0] == "gp.solvers.nystrom_apply"]
+        assert applies == ["gp.solvers.cg"] + ["gp.solvers.cg_iteration"] * iters
+    assert set(by) == {"gp.laplace.fit", "gp.laplace.predict", "gp.laplace.newton_step",
+                       "gp.laplace.w_roots", "gp.laplace.precond_build", "gp.solvers.cg",
+                       "gp.solvers.cg_iteration", "gp.solvers.nystrom_apply",
+                       "gp.solvers.nystrom_build"}
+
+
+def test_a_binary_fit_and_prediction_nest_their_spans(tmp_path):
+    x, labels, xs = _classes()
+    y = 2.0 * (labels == 0).double() - 1.0
+
+    def run():
+        model = GPBinaryClassifier(tops.RBF(), dict(PARAMS), device="cpu").fit(
+            x, y, solver="cg", cg_tol=1e-8, precond_rank=32)
+        return model.state, model.predict_proba(xs)
+
+    (st, _), spans = _spans(tmp_path, run)
+    by = _by_name(spans)
+    (fit,) = by["gp.laplace.fit"]
+    (predict,) = by["gp.laplace.predict"]
+    assert fit[3] is None and predict[3] is None
+    assert [s[3] for s in by["gp.solvers.nystrom_build"]] == ["gp.laplace.fit"]
+    assert [s[3] for s in by["gp.laplace.newton_step"]] == ["gp.laplace.fit"] * st.iters
+    # each step builds its Woodbury and solves once; the prediction builds
+    # one and solves its chunk
+    assert [s[3] for s in by["gp.laplace.precond_build"]] == (
+        ["gp.laplace.newton_step"] * st.iters + ["gp.laplace.predict"])
+    assert [s[3] for s in by["gp.solvers.cg"]] == (
+        ["gp.laplace.newton_step"] * st.iters + ["gp.laplace.predict"])
+
+
+def test_laplace_answers_are_the_same_bits_traced_and_not(tmp_path):
+    x, labels, xs = _classes()
+    plain_st, plain_prob = _multiclass(x, labels, xs)
+    (st, prob), _ = _spans(tmp_path, lambda: _multiclass(x, labels, xs))
+    assert torch.equal(st.f_mode, plain_st.f_mode) and torch.equal(prob, plain_prob)
+    assert st.cg_iters == plain_st.cg_iters and st.iters == plain_st.iters
